@@ -1,4 +1,4 @@
-"""rtmpc_tpu — TPU-native robust tube-based tracking MPC over lossy networks.
+"""rtmpc_tpu — accelerator-native robust tube-based tracking MPC over lossy networks.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 EricssonResearch/Robust-Tracking-MPC-over-Lossy-Networks (Umsonst & Barbosa,
@@ -11,9 +11,9 @@ Architecture (two-phase, see SURVEY.md §7):
   maximal admissible sets), LQR/Lyapunov gain synthesis, and condensed-QP
   matrix assembly. Produces a frozen, static-shape ``ControllerSpec`` pytree.
 * **Rollout phase** (device, jit/scan/vmap/shard_map): thousands of
-  closed-loop lossy-network rollouts run as one batched TPU computation.
+  closed-loop lossy-network rollouts run as one batched GPU computation.
   The per-step tracking QP is solved by a batched OSQP-style ADMM solver
-  (pure-JAX and fused Pallas kernels); the plant/actuator/estimator protocol
+  (pure JAX, or one fused Pallas kernel for the GPU); the plant/actuator/estimator protocol
   state machines are branchless pytree step functions; the lossy channel is a
   pre-drawn Bernoulli mask tensor, never actual communication.
 
@@ -24,7 +24,8 @@ utils     : polytope toolbox, discrete-time synthesis (dlqr/dlyap/c2d),
 sets      : invariant-set algorithms (Rakovic mRPI, Darup RPI, Gilbert–Tan
             maximal admissible set), constraint tightening.
 ops       : canonical box-constrained QP struct, batched ADMM solver
-            (JAX + Pallas), condensed QP assembly for all controller variants.
+            (JAX + a Pallas/Triton kernel), condensed QP assembly for all
+            controller variants.
 models    : controller specs (setup -> frozen pytree) and plants (linear,
             analytic cartpole with ZOH).
 protocol  : smart/consistent actuator + (robust) estimator state machines,

@@ -25,10 +25,9 @@ def main(argv=None):
     parser.add_argument("--checkpoint", default=None,
                         help="npz path for per-chunk sweep checkpointing; "
                              "re-run with the same path to resume")
-    parser.add_argument("--n-chunks", type=int, default=None,
+    parser.add_argument("--n-chunks", type=int, default=1,
                         help="sweep chunks along the probability axis "
-                             "(default: auto — one per probability for "
-                             "the IP path on accelerators, else 1)")
+                             "(default 1)")
     parser.add_argument("--save-json", default=None,
                         help="write the per-p mean-RMS rows + solver config "
                              "to this path (machine-readable evidence)")
@@ -36,10 +35,9 @@ def main(argv=None):
     # reference-grade accuracy by default on every backend: the
     # mixed-precision Riccati interior point (f32 path following + f64
     # polish, ops/ip_riccati.py) reproduces the f64 truth on this 4-D
-    # geometry at ~1.4 ms/solve on TPU — inside the reference's own
-    # 2.5-20 ms Clarabel histogram; --solver admm remains the opt-in
-    # throughput mode, --solver ip the round-4 dense accuracy mode
-    jax = init_jax(args, tpu_default_solver="ip_hybrid")
+    # geometry; --solver admm remains the opt-in throughput mode,
+    # --solver ip the dense accuracy mode
+    jax = init_jax(args, accel_default_solver="ip_hybrid")
     import jax.numpy as jnp
     from ..models import setup_tracking, setup_tube_tracking
     from ..models.cache import cached_setup
@@ -74,8 +72,6 @@ def main(argv=None):
     key = jax.random.PRNGKey(args.seed)
     k_tube, k_track = jax.random.split(key)
 
-    from .common import auto_chunks
-    args.n_chunks = auto_chunks(args, probs, jax)
     print(f"running sweep: {len(probs)} probs x {n_mc} runs x {T} steps, "
           f"2 arms, {args.n_chunks} chunk(s)")
     ckpt = lambda arm: (f"{args.checkpoint}.{arm}" if args.checkpoint

@@ -23,11 +23,11 @@ def main(argv=None):
     parser.add_argument("--save-json", default=None,
                         help="write the per-p mean-RMS rows + solver "
                              "config to this path")
-    parser.add_argument("--n-chunks", type=int, default=None,
+    parser.add_argument("--n-chunks", type=int, default=1,
                         help="sweep chunks along the probability axis "
-                             "(default: auto for the IP path)")
+                             "(default 1)")
     args = parser.parse_args(argv)
-    jax = init_jax(args, tpu_default_solver="ip_hybrid")
+    jax = init_jax(args, accel_default_solver="ip_hybrid")
     import jax.numpy as jnp
     from ..models import (setup_extended_tube_tracking, setup_tracking,
                           setup_tube_tracking)
@@ -68,8 +68,6 @@ def main(argv=None):
     refs[:, 0] = sc.ref_value
     key = jax.random.PRNGKey(args.seed)
 
-    from .common import auto_chunks
-    args.n_chunks = auto_chunks(args, probs, jax)
     results = {}
     for name, ((arrays, cfg), mode, im) in arms.items():
         results[name] = run_mc_sweep(

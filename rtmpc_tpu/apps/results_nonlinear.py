@@ -39,11 +39,11 @@ def main(argv=None):
     parser.add_argument("--save-json", default=None,
                         help="write the per-p mean-RMS rows + solver "
                              "config to this path")
-    parser.add_argument("--n-chunks", type=int, default=None,
+    parser.add_argument("--n-chunks", type=int, default=1,
                         help="sweep chunks along the probability axis "
-                             "(default: auto for the IP path)")
+                             "(default 1)")
     args = parser.parse_args(argv)
-    jax = init_jax(args, tpu_default_solver="ip_hybrid")
+    jax = init_jax(args, accel_default_solver="ip_hybrid")
     import jax.numpy as jnp
     from ..models import (setup_extended_tube_tracking, setup_tracking,
                           setup_tube_tracking)
@@ -90,8 +90,6 @@ def main(argv=None):
     # (in the full reference) initial conditions randomize across MC runs.
     # A zero-width disturbance box makes that explicit (the drawn w tensor
     # is all zeros and the plant step takes only (x, u)).
-    from .common import auto_chunks
-    args.n_chunks = auto_chunks(args, probs, jax)
     for name, (setup, mode, im) in setups.items():
         arrays, cfg = setup.to_device(dtype=dtype,
                                       **solver_kwargs(args, admm_iters=400))

@@ -107,7 +107,7 @@ class MPCSetup:
                   solver: str = "admm", ip_iters: int = 25,
                   ip_hybrid_iters: int = 12,
                   probe_thetas: Optional[np.ndarray] = None,
-                  pallas_block: int = 1024,
+                  pallas_block: int = 16,
                   pallas_interpret: bool = False,
                   early_tol: Optional[float] = None,
                   early_dual_factor: float = 25.0,
@@ -117,15 +117,14 @@ class MPCSetup:
         """Freeze into (ControllerArrays, ControllerConfig) for the engine.
 
         ``solver``: "admm" (throughput mode — shared factorization,
-        warm-started, vmapped XLA iteration), "pallas" (same ADMM run as a
-        fused VMEM-resident kernel over the whole batch — the batched
-        rollout path only; per-element code paths fall back to "admm"
-        semantics), or "ip" (accuracy mode — batched Mehrotra interior
+        warm-started, vmapped XLA iteration), "pallas" (same ADMM run as
+        one fused GPU kernel over the whole batch — the batched rollout
+        path only; per-element code paths fall back to "admm" semantics),
+        or "ip" (accuracy mode — batched Mehrotra interior
         point, Clarabel-class residuals on every instance, one dense
         factorization per instance per iteration).
 
-        ``pallas_block``: batch tile per kernel invocation (solver
-        "pallas").  ``pallas_interpret``: run the kernel in interpreter
+        ``pallas_block``: instances per kernel block (solver "pallas").  ``pallas_interpret``: run the kernel in interpreter
         mode (CPU testing only).
         """
         tmpl = self.template
@@ -286,7 +285,7 @@ class ControllerConfig:
     u_off: int
     xbar_off: int
     ubar_off: int
-    pallas_block: int = 1024
+    pallas_block: int = 16
     pallas_interpret: bool = False
     # Residual-based early exit of the ADMM loop (ops/qp.py:admm_solve):
     # None = fixed iteration count; a float = scaled-residual tolerance at
@@ -298,9 +297,10 @@ class ControllerConfig:
     # phase 2 runs on arrays.admm2 (rho scaled by to_device's rho2_scale).
     iters2: int = 0
     # matmul-precision overrides per schedule phase (None = the solve-path
-    # precision).  Phase-1 "default" (single-pass bf16) DIVERGES under
-    # vmap (see tpu_checks 2b); phase-2 "highest" (exact f32) tightens the
-    # batched parity for ~25% extra phase-2 cost.
+    # precision).  Phase-1 "default" (single-pass reduced precision)
+    # DIVERGES under vmap (see the batched section of
+    # tools/parity_checks.py); phase-2 "highest" (exact f32) tightens the
+    # batched parity for extra phase-2 cost.
     phase1_precision: Optional[str] = None
     phase2_precision: Optional[str] = None
     # Condensed (state-eliminated) solving: solvers run in the reduced

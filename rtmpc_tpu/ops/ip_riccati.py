@@ -2,9 +2,8 @@
 
 The accuracy-mode solver in ``ops/ip.py`` factorizes the FLAT KKT matrix
 (~200x200 for the 4-D N=20 cartpole) with a dense LU every Mehrotra
-iteration; profiling showed that LU is ~100% of its runtime on TPU
-(LATENCY.md round-4 notes) because batched 200x200 LU is a long sequential
-pivot chain the MXU cannot help with.  This module solves the SAME Newton
+iteration; a batched 200x200 LU is a long sequential pivot chain that
+dominates its runtime.  This module solves the SAME Newton
 systems without ever forming the flat matrix, exploiting the MPC QP's
 stagewise structure (the reference hands the same structure to Clarabel
 blind, ``TrackingMPC.py:64-130``; SURVEY.md section 2.1):
@@ -15,7 +14,7 @@ blind, ``TrackingMPC.py:64-130``; SURVEY.md section 2.1):
   (``lax.scan`` over N stages of (nx+nu)-sized ops: O(N (nx+nu)^3) flops
   vs O((n+me)^3) for the dense LU — ~50x fewer on the cartpole, and a
   ~10x shorter sequential dependency chain, which is what actually
-  matters for batched factorizations on TPU);
+  matters for batched factorizations);
 * the tracking block w = (xbar, ubar) couples to every stage through the
   cost and to x_N through the augmented terminal set -> an arrowhead
   border, eliminated by a (nw + nss)-sized Schur complement whose columns
@@ -24,7 +23,7 @@ blind, ``TrackingMPC.py:64-130``; SURVEY.md section 2.1):
 Inequality rows enter through the standard primal-dual elimination as
 stagewise diagonal weights (state/input rows stay per-stage; the ~500-row
 augmented terminal set becomes one (nx+nw)^2 dense contribution built by
-a small MXU matmul), so the Mehrotra algebra is IDENTICAL to ``ops/ip.py``
+a small matmul), so the Mehrotra algebra is IDENTICAL to ``ops/ip.py``
 — same central path, same freeze-on-convergence — only the linear solves
 change.
 
@@ -60,10 +59,10 @@ def _mm(a, b):
 #
 # Every linear solve in this solver is a tiny SPD system (nu x nu stage
 # feedback, nx x nx free-initial-state, nw x nw / nss x nss Schur blocks —
-# all <= 9).  XLA:TPU's LuDecomposition is F32-only and its batched LU is
-# slow even in f32; these unrolled loops compile to straight-line
-# mul/add/div/sqrt, which the TPU supports in BOTH f32 and f64 — this is
-# what makes the exact-arithmetic accuracy mode possible on TPU at all.
+# all <= 9).  A library batched LU is a sequential pivot loop per matrix;
+# these unrolled loops compile to straight-line mul/add/div/sqrt in any
+# dtype, which keeps the f32 and f64 phases of the accuracy mode on the
+# same code.
 # ---------------------------------------------------------------------------
 
 def _chol(A):
@@ -96,8 +95,8 @@ def _chol(A):
 def _plu_factor(A):
     """Partially-pivoted LU of a small matrix ([..., n, n]), unrolled.
 
-    Compiles to straight-line mul/add/div + one-hot selects — no XLA
-    LuDecomposition (F32-only on TPU).  Pivoting preserves the sign
+    Compiles to straight-line mul/add/div + one-hot selects — no library
+    LU call.  Pivoting preserves the sign
     structure of indefinite blocks (a clamped Cholesky silently flips
     near-zero pivots, which was measured to stall the IP on hard
     transients).  Returns (LU_compact, perm_onehots).
@@ -952,13 +951,12 @@ def ip_riccati_solve_hybrid(spec: RiccatiIPSpec, theta: jax.Array, N: int,
                             state0=None, want_state: bool = False):
     """Mixed-precision accuracy mode: f32 path-following, f64 polish.
 
-    TPU has no native f64; emulated f64 runs every op ~50x slower
-    (measured: 0.055 vs 2.96 ms/solve at batch 200 on v5e).  But the f32
-    solve lands within ~1e-3..1 of the optimum in a handful of hard
-    cases only because its residual arithmetic floors at ~1e-6; warm-
-    starting a SHORT f64 Mehrotra phase from the f32 interior point buys
-    back exact reference-grade accuracy for a fraction of the full-f64
-    cost.  ``spec`` must be the f64 spec; phase 1 runs on a cast-down
+    The f32 solve lands within ~1e-3..1 of the optimum in a handful of
+    hard cases only because its residual arithmetic floors at ~1e-6;
+    warm-starting a SHORT f64 Mehrotra phase from the f32 interior point
+    buys back exact reference-grade accuracy for a fraction of the
+    full-f64 cost.  (The 25+12 split was tuned for a chip that emulates
+    f64; on a card with native f64 it is an open question, ROADMAP A.)  ``spec`` must be the f64 spec; phase 1 runs on a cast-down
     copy (identical scalings, so the interior state transfers directly).
     """
     assert spec.A.dtype == jnp.float64, "hybrid needs the f64 spec"

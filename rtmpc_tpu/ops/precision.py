@@ -1,55 +1,76 @@
 """Explicit matmul precision for the numerically sensitive device path.
 
-On TPU, JAX's *default* f32 matmul precision feeds the MXU single-pass
-bf16 operands (~1e-2 relative error), while mat-vec products run exact
-f32 on the VPU.  The same code therefore looks numerically fine unbatched
-but silently degrades under ``vmap`` (a batched matvec IS a matmul) —
-enough to destabilize the ADMM and interior-point iterations, whose KKT
-operators are deliberately stiff (equality rows are weighted by
-``rho_eq_scale ~ 1e3``), and to poison closed-loop trajectory parity.
+The ADMM and interior-point KKT operators are deliberately stiff (equality
+rows are weighted by ``rho_eq_scale ~ 1e3``), so a single-pass reduced
+precision product poisons the iteration: with single-pass bf16 operands the
+batched flagship rollout diverges (1e28 at step 1).  An accelerator's
+*default* float32 matmul is such a product — on an H100 XLA lowers both
+``Precision.DEFAULT`` and ``Precision.HIGH`` to TF32 (3.3e-4 max relative
+error on a 1024-deep product) — and a batched mat-vec under ``vmap`` IS a
+matmul, so every matmul on the solve/protocol path goes through ``mm``
+with ``Precision.HIGHEST`` (IEEE float32 on the GPU, 1.4e-6 on that
+product).
 
-Every matmul on the solve/protocol path therefore pins
-``precision=HIGHEST`` (full f32 accumulation).  The operands here are
-tiny (n <= a few hundred), so the extra MXU passes are negligible next to
-HBM traffic; correctness is not.
+The solve-path precision NAME (``set_matmul_precision`` /
+``RTMPC_MATMUL_PRECISION``) selects the arithmetic of the fused ADMM
+kernel (``ops/qp_pallas.py``):
 
-Empirically on a v5 chip (see bench history): with default precision the
-batched flagship rollout diverges to NaN on step 1; with HIGHEST it
-matches the float64 CPU oracle to ~1e-5.
+* ``"highest"`` (the default): IEEE float32 products.
+* ``"high"``: the 3-pass bf16 product (hi*hi + hi*lo + lo*hi of the
+  bf16-split operands, accumulated in float32), validated against the
+  float64 protocol oracle by ``tools/parity_checks.py`` and shipped by
+  ``bench.py``.
 
-``HIGH`` (3-pass bf16, ~1e-6-class error) is ~1.5x faster end-to-end and
-empirically stable on the shipped benchmarks (feasibility and residuals
-match HIGHEST; trajectories agree to f32 solver tolerance) — select it
-with ``set_matmul_precision("high")`` or ``RTMPC_MATMUL_PRECISION=high``.
-The default stays HIGHEST: single-pass bf16 (``"default"``) is known to
-diverge and is rejected.
+XLA-lowered products run at ``HIGHEST`` under both names.  The 3-pass
+algorithm as XLA offers it (``DotAlgorithmPreset.BF16_BF16_F32_X3``) was
+measured on an H100: correct on matrix-matrix products (5e-6 on the
+product above) but not on matrix-vector ones — the unbatched per-element
+flagship rollout diverged to 1e28 with it, as single-pass bf16 does — and
+only 7% faster than ``HIGHEST`` in the batched engine (21.6k vs 20.2k
+rollouts/s).  A 3-pass split spelled out in jnp was both slower (16.5k)
+and wrong (trajectories 0.19 off the oracle).  Single-pass ``"default"``
+is rejected as a name; per-phase overrides may still ask for it
+(``resolve_precision``).
 """
 
+import contextlib
 import os
 
 import jax
 import jax.numpy as jnp
 
-__all__ = ["HIGHEST", "mm", "set_matmul_precision", "get_matmul_precision"]
+__all__ = ["HIGHEST", "mm", "resolve_precision", "set_matmul_precision",
+           "get_matmul_precision", "matmul_precision"]
 
 HIGHEST = jax.lax.Precision.HIGHEST
 
-_VALID = {"high": jax.lax.Precision.HIGH,
-          "highest": jax.lax.Precision.HIGHEST}
+_VALID = ("high", "highest")
 
 
-def _resolve(name: str) -> jax.lax.Precision:
+def _resolve(name: str) -> str:
     key = str(name).lower()
     if key not in _VALID:
         raise ValueError(
             f"invalid matmul precision {name!r}: valid values are "
             f"{sorted(_VALID)} ('default'/single-pass bf16 is rejected — "
             "it diverges on the solve path, see module docstring)")
-    return _VALID[key]
+    return key
+
+
+def resolve_precision(name):
+    """Per-call precision override for an XLA product: ``jax.lax``
+    objects pass through, "default" is single-pass, "high"/"highest" are
+    ``HIGHEST`` (see the module docstring)."""
+    if not isinstance(name, str):
+        return name
+    if name.lower() == "default":
+        return jax.lax.Precision.DEFAULT
+    _resolve(name)
+    return HIGHEST
 
 
 _PRECISION = _resolve(os.environ.get("RTMPC_MATMUL_PRECISION", "highest"))
-_mm_traced = False      # set once mm() has been traced under jit
+_traced = False      # set once the precision has been read by a trace
 
 
 def set_matmul_precision(name: str) -> None:
@@ -62,7 +83,7 @@ def set_matmul_precision(name: str) -> None:
     """
     global _PRECISION
     new = _resolve(name)
-    if _mm_traced and new != _PRECISION:
+    if _traced and new != _PRECISION:
         import warnings
         warnings.warn(
             "set_matmul_precision() called after solve-path functions were "
@@ -73,14 +94,25 @@ def set_matmul_precision(name: str) -> None:
     _PRECISION = new
 
 
+@contextlib.contextmanager
+def matmul_precision(name: str):
+    """Solve-path precision for the functions traced inside the block."""
+    global _PRECISION
+    old, _PRECISION = _PRECISION, _resolve(name)
+    try:
+        yield
+    finally:
+        _PRECISION = old
+
+
 def get_matmul_precision() -> str:
-    return ("high" if _PRECISION == jax.lax.Precision.HIGH else "highest")
+    """The solve-path precision name, as a trace reads it."""
+    global _traced
+    _traced = True
+    return _PRECISION
 
 
 def mm(a, b):
-    """``a @ b`` with (at least) 3-pass-bf16 accumulation on every
-    backend — never the divergence-inducing single-pass default."""
-    global _mm_traced
-    if not _mm_traced and isinstance(a, jax.core.Tracer):
-        _mm_traced = True
-    return jnp.matmul(a, b, precision=_PRECISION)
+    """``a @ b`` in IEEE float32 (or wider) — never the single-pass
+    default."""
+    return jnp.matmul(a, b, precision=HIGHEST)

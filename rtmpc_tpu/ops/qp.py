@@ -2,20 +2,20 @@
 
 Replaces the reference's per-step CVXPY/Clarabel interior-point solves
 (``prob.solve(solver=cp.CLARABEL, tol_gap_abs=1e-7)`` at
-``TubeTrackingMPC.py:183``) with a solver designed for the TPU execution
-model:
+``TubeTrackingMPC.py:183``) with a solver designed for batched execution
+on an accelerator:
 
 * **One factorization per problem structure.** All per-step QPs share the
   quadratic form and constraint matrix; only ``q``/``l``/``u`` depend on the
   parameters ``theta = [x_init; ref]``.  The ADMM KKT matrix
   ``K = P + sigma I + A' diag(rho) A`` is inverted once on the host in
   float64 and shipped to the device, so the per-iteration linear solve is a
-  single dense matmul — exactly what the MXU wants.
+  single dense matmul.
 * **Batched by construction.** ``admm_solve`` is written for one problem and
   ``vmap``s to thousands of parameter instances; the iteration then consists
   of ``(B, n) @ (n, n)`` / ``(B, n) @ (n, m)`` matmuls plus elementwise
   projections.
-* **Static shapes.** Problems are padded to lane-friendly sizes at
+* **Static shapes.** Problems are padded to a fixed multiple at
   preparation time; a fixed iteration count keeps the step function
   scan-compatible (no data-dependent control flow).
 * **Warm starting.** The (x, y, z) iterates are part of the rollout carry:
@@ -33,6 +33,7 @@ asserted on trajectories, not raw QP iterates.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -40,10 +41,10 @@ import jax
 import jax.numpy as jnp
 
 from .assembly import QPTemplate
-from .precision import mm
+from .precision import mm, resolve_precision
 
 __all__ = ["ADMMSpec", "ADMMState", "ADMMSolution", "prepare_admm",
-           "init_admm_state", "admm_solve", "admm_solve_batch_T"]
+           "init_admm_state", "admm_solve"]
 
 
 class ADMMSpec(NamedTuple):
@@ -71,12 +72,12 @@ class ADMMSpec(NamedTuple):
     # float64 at preparation.  With s = rho*z - y the ADMM linear step is
     #   xt = Kinv (sigma x - q + As' s),   zt = As xt
     # so per iteration  [xt | zt] = x Gxc + s Gsc - q Kcat : two wide
-    # INDEPENDENT matmuls (vs a 3-deep dependent chain), with the q-terms
-    # hoisted out of the loop entirely.  The xt/zt output slots start at
-    # 128-lane boundaries (``_LANE``) so in-kernel slices are aligned.
-    Gxc: jax.Array       # (n_p, nblk+mblk)  [x-slot: (sigma Kinv)' | (As sigma Kinv)']
-    Gsc: jax.Array       # (m_p, nblk+mblk)  [(Kinv As')' | (As Kinv As')']
-    Kcat: jax.Array      # (n_p, nblk+mblk)  [Kinv' | Kinv' As']
+    # INDEPENDENT products (vs a 3-deep dependent chain), with the q-terms
+    # hoisted out of the loop entirely.  Columns [:n_p] hold the xt block,
+    # columns [n_p:] the zt block.
+    Gxc: jax.Array       # (n_p, n_p+m_p)  [(sigma Kinv)' | (As sigma Kinv)']
+    Gsc: jax.Array       # (m_p, n_p+m_p)  [(Kinv As')' | (As Kinv As')']
+    Kcat: jax.Array      # (n_p, n_p+m_p)  [Kinv' | Kinv' As']
 
 
 class ADMMState(NamedTuple):
@@ -174,8 +175,7 @@ def prepare_admm(
 ) -> ADMMSpec:
     """Host-side preparation: equilibrate, build K^{-1} in float64, pad, cast.
 
-    ``pad_to``: round n and m up to this multiple (use 128/256 on TPU for
-    MXU-tile alignment; 8 is fine for CPU tests).
+    ``pad_to``: round n and m up to this multiple.
 
     ``rho="auto"``: select the penalty from ``rho_candidates`` by running a
     short NumPy ADMM trial per candidate on ``probe_thetas`` (representative
@@ -261,29 +261,18 @@ def prepare_admm(
 
     def phase_spec(rv, rho_fill):
         """Everything that depends on the rho vector: K^{-1} (float64) and
-        the fused-path composites; xt/zt output slots are placed at
-        128-lane boundaries for the TPU kernel."""
+        the fused-path composites."""
         K = Ps + sigma * np.eye(n) + (As.T * rv) @ As
         Kinv = np.linalg.inv(K)
         Kinv_p = padm(Kinv, n_p, n_p)
         np.fill_diagonal(Kinv_p[n:, n:], 1.0 / (1.0 + sigma))
         rho_p = padv(rv, m_p, fill=rho_fill)
 
-        _LANE = 128
-        nblk = ((n_p + _LANE - 1) // _LANE) * _LANE
-        mblk = ((m_p + _LANE - 1) // _LANE) * _LANE
         M1 = sigma * Kinv_p                    # (n_p, n_p)
         M2 = Kinv_p @ As_p.T                   # (n_p, m_p)
-
-        def cat_slots(Mx, Mz):
-            out = np.zeros((Mx.shape[0], nblk + mblk))
-            out[:, :n_p] = Mx
-            out[:, nblk:nblk + m_p] = Mz
-            return out
-
-        Gxc = cat_slots(M1.T, (As_p @ M1).T)
-        Gsc = cat_slots(M2.T, (As_p @ M2).T)
-        Kcat = cat_slots(Kinv_p.T, Kinv_p.T @ As_p.T)
+        Gxc = np.hstack([M1.T, (As_p @ M1).T])
+        Gsc = np.hstack([M2.T, (As_p @ M2).T])
+        Kcat = np.hstack([Kinv_p.T, Kinv_p.T @ As_p.T])
 
         return ADMMSpec(
             Kinv=jnp.asarray(Kinv_p, dtype),
@@ -334,12 +323,7 @@ def _admm_body(spec: ADMMSpec, q, l, u, precision=None):
     if precision is None:
         mmp = mm
     else:
-        if isinstance(precision, str):
-            precision = {"default": jax.lax.Precision.DEFAULT,
-                         "high": jax.lax.Precision.HIGH,
-                         "highest": jax.lax.Precision.HIGHEST}[precision]
-        def mmp(a, b, _p=precision):
-            return jnp.matmul(a, b, precision=_p)
+        mmp = partial(jnp.matmul, precision=resolve_precision(precision))
 
     def body(s: ADMMState) -> ADMMState:
         x, y, z = s
@@ -372,7 +356,7 @@ def admm_solve(spec: ADMMSpec, theta: jax.Array,
     ``check_every`` and stop once the scaled primal residual inf-norm
     drops below ``early_tol`` AND the dual below
     ``early_tol * early_dual_factor`` (or the ``iters`` budget runs out).
-    The asymmetry is measured, not stylistic: on TPU f32/bf16-3-pass the
+    The asymmetry is measured, not stylistic: in f32/bf16-3-pass the
     ADMM iterate's dual residual floors at ~1.5e-3 (iteration arithmetic
     noise, verified identical under HIGHEST-precision re-measurement)
     while the primal keeps falling to ~5e-6, so a symmetric tolerance
@@ -381,8 +365,7 @@ def admm_solve(spec: ADMMSpec, theta: jax.Array,
     budget, recovering most of the fixed-count throughput loss at
     unchanged worst-case accuracy.  Under ``vmap`` the ``while_loop``
     batches to run-until-all-lanes-converge with per-lane masking, so a
-    batch advances at the pace of its slowest element (on TPU the loop is
-    a true dynamic-trip-count XLA While).
+    batch advances at the pace of its slowest element.
 
     ``polish=True`` runs an OSQP-style solution polish after the ADMM loop:
     detect the active constraint set from the final iterate, then solve the
@@ -440,81 +423,6 @@ def admm_solve(spec: ADMMSpec, theta: jax.Array,
         # solve's warm start; only the returned primal is polished.
 
     return ADMMSolution(z_primal=spec.D * x, state=state,
-                        r_prim=r_prim, r_dual=r_dual)
-
-
-def admm_solve_batch_T(spec: ADMMSpec, theta_b: jax.Array,
-                       state_b: Optional[ADMMState] = None,
-                       iters: int = 100,
-                       precision=None) -> ADMMSolution:
-    """Batch-level ADMM with the batch in the MXU LANE dimension.
-
-    The vmapped path runs each iteration GEMM as (B,m)x(m,n): contraction
-    and output dims are the tiny problem sizes, each padded to 128 lanes,
-    so only ~20% of the streamed MACs are useful on the flagship geometry
-    — the measured MXU-padding bound (``parallel/roofline.py``; BENCH_r04
-    ``roofline_bound: mxu_padded_tiles`` at ``mxu_padded_util`` ~1.0).
-    Here the state is carried TRANSPOSED — X:(n_p, B), Y/Z:(m_p, B), the
-    problem matrices multiply from the LEFT — so the lane dimension is the
-    batch (no padding waste for B >= 128) and n/m pad only as contraction
-    lanes / output sublanes: the useful-MAC ceiling roughly doubles.
-
-    Same algorithm, same contraction lengths, same fixed iteration count
-    as ``admm_solve`` — results match the vmapped path to f32 roundoff.
-    Accepts and returns the vmapped (batch-major, (B, .) leaves) layout so
-    it is a drop-in replacement inside the batched rollout; the boundary
-    transposes are amortized over ``iters``.
-
-    No polish / early-exit / certificate plumbing here: polish is a
-    per-element LU (vmapped around this call when enabled), early exit is
-    a measured negative on TPU (ACCURACY.md), and certificates probe the
-    returned state exactly as for the other paths.
-    """
-    dt = spec.q0.dtype
-    theta_b = jnp.asarray(theta_b, dt)
-    B = theta_b.shape[0]
-    if state_b is None:
-        n_p, m_p = spec.Kinv.shape[0], spec.As.shape[0]
-        state_b = ADMMState(x=jnp.zeros((B, n_p), dt),
-                            y=jnp.zeros((B, m_p), dt),
-                            z=jnp.zeros((B, m_p), dt))
-    if precision is None:
-        mmp = mm
-    else:
-        if isinstance(precision, str):
-            precision = {"default": jax.lax.Precision.DEFAULT,
-                         "high": jax.lax.Precision.HIGH,
-                         "highest": jax.lax.Precision.HIGHEST}[precision]
-
-        def mmp(a, b, _p=precision):
-            return jnp.matmul(a, b, precision=_p)
-
-    # parameter maps once per solve; (row-major GEMMs, then transpose)
-    qT = (spec.q0[None, :] + mmp(theta_b, spec.Mq.T)).T    # (n_p, B)
-    lT = (spec.l0[None, :] + mmp(theta_b, spec.Ml.T)).T    # (m_p, B)
-    uT = (spec.u0[None, :] + mmp(theta_b, spec.Mu.T)).T
-    X, Y, Z = state_b.x.T, state_b.y.T, state_b.z.T
-    sigma, alpha = spec.sigma, spec.alpha
-    rho = spec.rho[:, None]
-    rho_inv = spec.rho_inv[:, None]
-
-    def body(_, s):
-        X, Y, Z = s
-        rhs = sigma * X - qT + mmp(spec.As.T, rho * Z - Y)
-        Xt = mmp(spec.Kinv, rhs)
-        Zt = mmp(spec.As, Xt)
-        Xn = alpha * Xt + (1.0 - alpha) * X
-        Zmix = alpha * Zt + (1.0 - alpha) * Z
-        Zn = jnp.clip(Zmix + Y * rho_inv, lT, uT)
-        Yn = Y + rho * (Zmix - Zn)
-        return (Xn, Yn, Zn)
-
-    X, Y, Z = jax.lax.fori_loop(0, iters, body, (X, Y, Z))
-    r_prim = jnp.max(jnp.abs(mm(spec.As, X) - Z), axis=0)
-    r_dual = jnp.max(jnp.abs(mm(spec.Ps, X) + qT + mm(spec.As.T, Y)),
-                     axis=0)
-    return ADMMSolution(z_primal=spec.D[None, :] * X.T,
-                        state=ADMMState(X.T, Y.T, Z.T),
                         r_prim=r_prim, r_dual=r_dual)
 
 

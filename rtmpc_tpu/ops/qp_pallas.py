@@ -1,27 +1,27 @@
-"""Fused batched ADMM QP solver as a Pallas TPU kernel.
+"""Fused batched ADMM QP solve as a Pallas kernel for NVIDIA GPUs (Triton).
 
 ``admm_solve`` (``qp.py``) expresses one OSQP-style iteration in jnp and is
-vmapped over the batch; under XLA every iteration's intermediates round-trip
-through HBM, so the solve runs at the HBM roofline.  This kernel instead
-runs the ENTIRE fixed iteration budget VMEM-resident per batch tile: the
-shared problem matrices are loaded into VMEM once per tile and the
-per-instance iterates ``(x, y, z)`` never leave the chip until the final
-state is written back.
+vmapped over the batch; under XLA every iteration is a handful of separate
+GEMM and elementwise kernels whose intermediates round-trip through device
+memory.  This kernel runs the WHOLE fixed iteration budget inside one block
+per batch tile: the per-instance iterates ``(x, y, z)`` stay in registers
+from the first iteration to the last, and the loop issues no launches.
 
-The iteration is restructured for the MXU's pipeline (this is what makes
-the kernel beat XLA rather than merely match it):
+Layout, chosen for the card:
 
-* the per-instance linear terms ``Kinv q`` / ``As Kinv q`` are hoisted out
-  of the loop (computed once per tile),
-* the per-iteration linear step uses the precomputed composites
-  ``Gxx/Gsx/Gxz/Gsz`` (``prepare_admm``), so each iteration issues four
-  INDEPENDENT matmuls instead of a 3-deep dependent chain — the MXU can
-  overlap them, which matters at these tiny shapes (n ~ 40, m ~ 112,
-  far below one 128x128 MXU tile).
+* one block per tile of ``block_b`` instances (a power of two, >= 16);
+* the iteration budget is an in-block ``lax.fori_loop``;
+* the composite iteration matrices (``prepare_admm``: ``Gxc``/``Gsc``) are
+  split into their four ``[xt | zt]`` blocks, zero-padded to powers of two
+  and loaded once per block before the loop;
+* the per-solve maps ``q/l/u`` and ``q @ Kcat`` (contraction width
+  ``ntheta``, below the kernel dot's minimum of 16) run in plain XLA before
+  the call, and the KKT residuals after it;
+* ``alpha`` is a one-element operand.
 
-Matmul precision follows ``ops/precision.py``: HIGHEST maps to the native
-6-pass dot; HIGH is implemented manually as 3-pass bf16 (Mosaic rejects
-``Precision.HIGH``), matching XLA's HIGH semantics.
+Matmul precision follows ``ops/precision.py``: "highest" runs IEEE f32
+dots (no TF32); "high" runs the 3-pass bf16 product (hi*hi + hi*lo +
+lo*hi) with the loop-invariant matrices split once, outside the kernel.
 
 Replaces: per-step CVXPY/Clarabel solves of the reference
 (``TubeTrackingMPC.py:183``, ``RegulatorMPC.py:31``).
@@ -35,14 +35,23 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from . import precision as _prec
 from .qp import ADMMSpec, ADMMState, ADMMSolution
 
-__all__ = ["admm_solve_pallas"]
+__all__ = ["admm_solve_pallas", "pow2_width"]
 
 _DIMS = (((1,), (0,)), ((), ()))
+_MIN_WIDTH = 16          # smallest operand width the Triton dot accepts
+
+
+def pow2_width(v: int) -> int:
+    """Smallest power of two >= ``max(v, 16)``: the kernel's padded width."""
+    p = _MIN_WIDTH
+    while p < v:
+        p *= 2
+    return p
 
 
 def _split_bf16(a):
@@ -53,214 +62,149 @@ def _split_bf16(a):
     return ahi, alo
 
 
-def _high() -> bool:
-    return _prec._PRECISION != jax.lax.Precision.HIGHEST
+def _dot(a, b, out_dtype):
+    return jax.lax.dot_general(a, b, dimension_numbers=_DIMS,
+                               precision=jax.lax.Precision.HIGHEST,
+                               preferred_element_type=out_dtype)
 
 
-def _dot(a, b):
-    """Contraction at the solve-path precision (ops/precision.py).
-
-    HIGHEST: native 6-pass (exact f32).  HIGH: manual 3-pass bf16 — Mosaic
-    does not implement ``Precision.HIGH``, so split each operand into a
-    bf16 high part and a bf16 residual and take the three leading products
-    (hi*hi + hi*lo + lo*hi), exactly XLA's HIGH algorithm.
-    """
-    if not _high():
-        return jax.lax.dot_general(
-            a, b, dimension_numbers=_DIMS,
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST)
-    return _dot_split(_split_bf16(a), _split_bf16(b))
-
-
-def _dot_split(ab, bb):
-    """3-pass product of pre-split bf16 operand pairs (HIGH semantics);
-    lets loop-invariant matrices be split ONCE outside the iteration."""
-    ahi, alo = ab
-    bhi, blo = bb
+def _dot3(a_split, b_split):
+    """3-pass bf16 product of pre-split operand pairs."""
+    ahi, alo = a_split
+    bhi, blo = b_split
 
     def d(u, v):
-        return jax.lax.dot_general(
-            u, v, dimension_numbers=_DIMS,
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.DEFAULT)
+        return jax.lax.dot_general(u, v, dimension_numbers=_DIMS,
+                                   preferred_element_type=jnp.float32)
 
-    return d(ahi, bhi) + d(ahi, blo) + d(alo, bhi)
+    return d(ahi, blo) + d(alo, bhi) + d(ahi, bhi)
 
 
-def _dot_mat2(a_prep, mat_prep):
-    """``a @ M`` on operands prepared by ``_prep_mat``/``_split_bf16``
-    (pre-split pairs in HIGH mode, plain arrays in HIGHEST)."""
-    if not _high():
-        return jax.lax.dot_general(
-            a_prep, mat_prep, dimension_numbers=_DIMS,
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST)
-    return _dot_split(a_prep, mat_prep)
-
-
-def _prep_mat(m):
-    return _split_bf16(m) if _high() else m
-
-
-def _admm_kernel(alpha_ref, theta_ref, x_ref, y_ref, z_ref,
-                 Gxc_ref, Gsc_ref, Kcat_ref,
-                 As_ref, AsT_ref, PsT_ref,
-                 MqT_ref, MlT_ref, MuT_ref,
-                 q0_ref, l0_ref, u0_ref, rho_ref, rhoinv_ref,
-                 x_out, y_out, z_out, rp_out, rd_out,
-                 *, iters: int, n_p: int, m_p: int, nblk: int):
-    alpha = alpha_ref[0, 0]
-    # per-instance parameter vectors, built once per tile
-    th = theta_ref[:]
-    q = q0_ref[:] + _dot(th, MqT_ref[:])          # (BT, n)
-    l = l0_ref[:] + _dot(th, MlT_ref[:])          # (BT, m)
-    u = u0_ref[:] + _dot(th, MuT_ref[:])          # (BT, m)
-    # qcat = [Kinv q | As Kinv q] in the two lane-aligned output slots
-    qcat = _dot(q, Kcat_ref[:])                   # (BT, nblk + mblk)
-    rho = rho_ref[:]                              # (1, m) broadcasts
-    rho_inv = rhoinv_ref[:]
-    # loop-invariant matrices: bf16-split ONCE (HIGH) outside the iteration
-    Gxc = _prep_mat(Gxc_ref[:])                   # (n, nblk + mblk)
-    Gsc = _prep_mat(Gsc_ref[:])                   # (m, nblk + mblk)
+def _admm_kernel(alpha_ref, x_ref, y_ref, z_ref, qx_ref, qz_ref, l_ref,
+                 u_ref, rho_ref, rhoinv_ref, *refs, iters: int, split: bool):
+    n_mat = 8 if split else 4
+    mat_refs, (x_out, y_out, z_out) = refs[:n_mat], refs[n_mat:]
+    dt = x_ref.dtype
+    alpha = alpha_ref[0]
+    rho = rho_ref[...]                  # (1, m2) broadcasts over the tile
+    rho_inv = rhoinv_ref[...]
+    # composites, loaded once per block: x->xt, s->xt, x->zt, s->zt
+    mats = [r[...] for r in mat_refs]
+    if split:
+        mats = [(mats[2 * i], mats[2 * i + 1]) for i in range(4)]
+        prep = _split_bf16
+        dot = _dot3
+    else:
+        prep = lambda a: a
+        dot = functools.partial(_dot, out_dtype=dt)
+    Gxx, Gsx, Gxz, Gsz = mats
 
     def body(_, st):
         x, y, z = st
         s = rho * z - y
-        xs = _split_bf16(x) if _high() else x
-        ss = _split_bf16(s) if _high() else s
-        # one wide matmul per operand: output slots [xt | zt], each
-        # starting at a 128-lane boundary so the slices below are aligned
-        t = _dot_mat2(xs, Gxc) + _dot_mat2(ss, Gsc) - qcat
-        xt = t[:, :n_p]
-        zt = t[:, nblk:nblk + m_p]
+        xs, ss = prep(x), prep(s)
+        xt = dot(xs, Gxx) + dot(ss, Gsx) - qx_ref[...]
+        zt = dot(xs, Gxz) + dot(ss, Gsz) - qz_ref[...]
         x_new = alpha * xt + (1.0 - alpha) * x
         z_mix = alpha * zt + (1.0 - alpha) * z
-        z_new = jnp.clip(z_mix + y * rho_inv, l, u)
+        z_new = jnp.minimum(jnp.maximum(z_mix + y * rho_inv, l_ref[...]),
+                            u_ref[...])
         y_new = y + rho * (z_mix - z_new)
         return x_new, y_new, z_new
 
-    x, y, z = jax.lax.fori_loop(
-        0, iters, body, (x_ref[:], y_ref[:], z_ref[:]))
-
-    x_out[:] = x
-    y_out[:] = y
-    z_out[:] = z
-    # scaled KKT residuals, per instance (matches qp.admm_solve)
-    rp_out[:] = jnp.max(jnp.abs(_dot(x, AsT_ref[:]) - z), axis=1,
-                        keepdims=True)
-    rd = _dot(x, PsT_ref[:]) + q + _dot(y, As_ref[:])
-    rd_out[:] = jnp.max(jnp.abs(rd), axis=1, keepdims=True)
+    x, y, z = jax.lax.fori_loop(0, iters, body,
+                                (x_ref[...], y_ref[...], z_ref[...]))
+    x_out[...] = x
+    y_out[...] = y
+    z_out[...] = z
 
 
 def admm_solve_pallas(spec: ADMMSpec, theta: jax.Array,
                       state: Optional[ADMMState] = None,
                       iters: int = 100,
-                      block_b: int = 1024,
+                      block_b: int = 16,
+                      num_warps: int = 8,
                       interpret: bool = False) -> ADMMSolution:
     """Batch-explicit fused solve: ``theta`` is ``(B, ntheta)``, the state
     leaves are ``(B, n_p)`` / ``(B, m_p)``.  Returns a batched
     ``ADMMSolution`` (``z_primal`` ``(B, n_p)``, residuals ``(B,)``).
 
-    Numerically equivalent iteration to ``qp.admm_solve`` (same warm-start
-    semantics, composite matrices formed in f64 at preparation); parity is
-    asserted in ``tests/test_qp_pallas.py`` and, compiled on hardware, by
-    ``tools/bench_pallas_kernel.py`` / the rollout parity gates.
+    The same iteration as ``qp.admm_solve`` (same warm-start semantics,
+    composite matrices formed in f64 by ``prepare_admm``); parity is
+    asserted in ``tests/test_qp_pallas.py`` in interpret mode and, compiled
+    for the card, by ``tools/parity_checks.py``.  ``block_b=16`` with
+    ``num_warps=8`` won a tile x warps sweep on an H100 at the flagship
+    widths (``tools/bench_pallas_kernel.py``); larger tiles ran slower.
     """
-    B, nt = theta.shape
+    B, _ = theta.shape
     n_p = spec.Kinv.shape[0]
     m_p = spec.As.shape[0]
     dt = spec.Kinv.dtype
     theta = theta.astype(dt)
-
     if state is None:
         state = ADMMState(x=jnp.zeros((B, n_p), dt),
                           y=jnp.zeros((B, m_p), dt),
                           z=jnp.zeros((B, m_p), dt))
+    mm = _prec.mm
+    # per-solve parameter maps in XLA (contraction width ntheta)
+    q = spec.q0[None, :] + mm(theta, spec.Mq.T)            # (B, n_p)
+    l = spec.l0[None, :] + mm(theta, spec.Ml.T)            # (B, m_p)
+    u = spec.u0[None, :] + mm(theta, spec.Mu.T)
+    qcat = mm(q, spec.Kcat)                                # (B, n_p + m_p)
 
-    # pad the batch to a whole number of tiles (f32 sublane multiple of 8)
-    bt = max(8, min(block_b, ((B + 7) // 8) * 8))
-    B_pad = ((B + bt - 1) // bt) * bt
-    pad = B_pad - B
+    n2, m2 = pow2_width(n_p), pow2_width(m_p)
+    bt = pow2_width(block_b)
+    B_pad = -(-B // bt) * bt
 
-    def padb(a):
-        return jnp.pad(a, ((0, pad), (0, 0))) if pad else a
+    def pad(a, cols):
+        return jnp.pad(a, ((0, B_pad - a.shape[0]), (0, cols - a.shape[1])))
 
-    theta_p = padb(theta)
-    x_p, y_p, z_p = padb(state.x), padb(state.y), padb(state.z)
+    def padm(a, rows, cols):
+        return jnp.pad(a, ((0, rows - a.shape[0]), (0, cols - a.shape[1])))
 
-    row = lambda v: v.reshape(1, -1)
-    grid = (B_pad // bt,)
+    def padrow(v, fill):
+        return jnp.pad(v, (0, m2 - m_p), constant_values=fill)[None, :]
 
-    tile = lambda cols: pl.BlockSpec((bt, cols), lambda i: (i, 0),
-                                     memory_space=pltpu.VMEM)
-    full = lambda shape: pl.BlockSpec(shape, lambda i: (0,) * len(shape),
-                                      memory_space=pltpu.VMEM)
+    # zero-padded lanes stay zero: their composite rows/cols are zero and
+    # their bounds are [0, 0]
+    ins = [spec.alpha.astype(dt).reshape(1),
+           pad(state.x, n2), pad(state.y, m2), pad(state.z, m2),
+           pad(qcat[:, :n_p], n2), pad(qcat[:, n_p:], m2),
+           pad(l, m2), pad(u, m2),
+           padrow(spec.rho, 1.0), padrow(spec.rho_inv, 1.0)]
+    mats = [padm(spec.Gxc[:, :n_p], n2, n2), padm(spec.Gsc[:, :n_p], m2, n2),
+            padm(spec.Gxc[:, n_p:], n2, m2), padm(spec.Gsc[:, n_p:], m2, m2)]
+    split = _prec.get_matmul_precision() == "high" and dt == jnp.float32
+    if split:
+        mats = [h for mat in mats for h in _split_bf16(mat)]
 
-    # wide composites with 128-lane-aligned [xt | zt] output slots,
-    # precomputed in f64 by prepare_admm
-    nm = spec.Gxc.shape[1]
-    LANE = 128
-    nblk = ((n_p + LANE - 1) // LANE) * LANE
+    tile = lambda cols: pl.BlockSpec((bt, cols), lambda i: (i, 0))
+    full = lambda a: pl.BlockSpec(a.shape, lambda i: (0,) * a.ndim)
+    in_specs = ([full(ins[0])]
+                + [tile(a.shape[1]) for a in ins[1:8]]
+                + [full(ins[8]), full(ins[9])]
+                + [full(a) for a in mats])
+    out_shape = (jax.ShapeDtypeStruct((B_pad, n2), dt),
+                 jax.ShapeDtypeStruct((B_pad, m2), dt),
+                 jax.ShapeDtypeStruct((B_pad, m2), dt))
 
-    kernel = functools.partial(_admm_kernel, iters=iters,
-                               n_p=n_p, m_p=m_p, nblk=nblk)
-    alpha = spec.alpha.astype(dt).reshape(1, 1)
-
-    out_shape = (
-        jax.ShapeDtypeStruct((B_pad, n_p), dt),   # x
-        jax.ShapeDtypeStruct((B_pad, m_p), dt),   # y
-        jax.ShapeDtypeStruct((B_pad, m_p), dt),   # z
-        jax.ShapeDtypeStruct((B_pad, 1), dt),     # r_prim
-        jax.ShapeDtypeStruct((B_pad, 1), dt),     # r_dual
-    )
-    # 4 matmuls/iter; HIGHEST ~ 6 bf16 passes, HIGH ~ 3
-    passes = 6 if _prec._PRECISION == jax.lax.Precision.HIGHEST else 3
-    flops_iter = 2 * bt * (n_p + m_p) * (n_p + m_p) * passes
-    cost = pl.CostEstimate(
-        flops=flops_iter * iters * grid[0],
-        bytes_accessed=(B_pad * (n_p + 2 * m_p) * 2 + B_pad * nt) * 4,
-        transcendentals=0)
-
-    x_o, y_o, z_o, rp, rd = pl.pallas_call(
-        kernel,
-        grid=grid,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel",)),   # tiles are independent
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),  # alpha
-            tile(nt),                      # theta
-            tile(n_p), tile(m_p), tile(m_p),   # x, y, z
-            full((n_p, nm)),               # Gxc
-            full((m_p, nm)),               # Gsc
-            full((n_p, nm)),               # Kcat
-            full((m_p, n_p)),              # As
-            full((n_p, m_p)),              # As^T
-            full((n_p, n_p)),              # Ps^T
-            full((nt, n_p)),               # Mq^T
-            full((nt, m_p)),               # Ml^T
-            full((nt, m_p)),               # Mu^T
-            full((1, n_p)),                # q0
-            full((1, m_p)), full((1, m_p)),    # l0, u0
-            full((1, m_p)), full((1, m_p)),    # rho, rho_inv
-        ],
-        out_specs=(tile(n_p), tile(m_p), tile(m_p), tile(1), tile(1)),
+    x_o, y_o, z_o = pl.pallas_call(
+        functools.partial(_admm_kernel, iters=iters, split=split),
+        grid=(B_pad // bt,),
+        in_specs=in_specs,
+        out_specs=(tile(n2), tile(m2), tile(m2)),
         out_shape=out_shape,
-        cost_estimate=cost,
+        compiler_params=pltriton.CompilerParams(num_warps=num_warps,
+                                                num_stages=1),
+        backend="triton",
         interpret=interpret,
-    )(alpha, theta_p, x_p, y_p, z_p,
-      spec.Gxc, spec.Gsc, spec.Kcat,
-      spec.As, spec.As.T, spec.Ps.T,
-      spec.Mq.T, spec.Ml.T, spec.Mu.T,
-      row(spec.q0), row(spec.l0), row(spec.u0),
-      row(spec.rho), row(spec.rho_inv))
+        name="admm_fused",
+    )(*ins, *mats)
 
-    if pad:
-        x_o, y_o, z_o = x_o[:B], y_o[:B], z_o[:B]
-        rp, rd = rp[:B], rd[:B]
-
-    return ADMMSolution(
-        z_primal=x_o * spec.D[None, :],
-        state=ADMMState(x=x_o, y=y_o, z=z_o),
-        r_prim=rp[:, 0], r_dual=rd[:, 0])
+    x, y, z = x_o[:B, :n_p], y_o[:B, :m_p], z_o[:B, :m_p]
+    # scaled KKT residuals, per instance (as qp.admm_solve)
+    r_prim = jnp.max(jnp.abs(mm(x, spec.As.T) - z), axis=1)
+    r_dual = jnp.max(jnp.abs(mm(x, spec.Ps.T) + q + mm(y, spec.As)), axis=1)
+    return ADMMSolution(z_primal=x * spec.D[None, :],
+                        state=ADMMState(x=x, y=y, z=z),
+                        r_prim=r_prim, r_dual=r_dual)

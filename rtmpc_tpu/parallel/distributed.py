@@ -1,37 +1,32 @@
-"""Multi-host launch path: ``jax.distributed`` init + global DP mesh.
+"""Multi-process launch path: ``jax.distributed`` init + global DP mesh.
 
 The reference is single-process, single-threaded (SURVEY.md §2.4:
-"Multi-host: absent"); the TPU-native plan commits to scaling the
-Monte-Carlo batch across v5p hosts with the batch sharded over every chip
-of every process, DCN touched only at init and at result gather, per-step
-collectives riding ICI.
+"Multi-host: absent"); here the Monte-Carlo batch is sharded over every
+device of every process, with cross-host traffic only at init and at
+result gather.
 
-This rig exposes ONE chip and one process, so real multi-host scaling is
-unmeasurable here; this module makes the launch path *code* rather than
-prose:
-
-* ``initialize_from_env()`` — guarded ``jax.distributed.initialize``.  On a
-  TPU pod slice the JAX runtime auto-detects coordinator/process_id/count
-  from the TPU metadata, so a bare call suffices; for CPU/GPU fleets the
-  standard env vars (``JAX_COORDINATOR_ADDRESS``, ``JAX_PROCESS_ID``,
-  ``JAX_NUM_PROCESSES``) are honored.  A single process with no env vars
-  set degenerates to a no-op (nothing to coordinate), so the same entry
-  point works from one dev box to a pod.
-* ``global_dp_mesh()`` — a 1-D "dp" mesh over every device of every
+* ``initialize_from_env()`` — guarded ``jax.distributed.initialize``.  The
+  coordinator address, process count and process id come from the
+  arguments or the ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
+  ``JAX_PROCESS_ID`` env vars.  A single process with nothing set is a
+  no-op (nothing to coordinate), so the same entry point works from one
+  card to many hosts.
+* ``global_dp_mesh()`` — a flat 1-D "dp" mesh over every device of every
   process (the sweep's only parallel axis; QPs are tiny, so there is no
-  model axis to shard — SURVEY.md §2.4 TP/PP/SP/EP rationale).
+  model axis to shard — SURVEY.md §2.4 TP/PP/SP/EP rationale).  NVLink
+  joins a host's cards all to all, so the mesh needs no topology.
 * ``distributed_mc_arrays()`` — lay a host-local batch shard out as one
   globally-sharded array via ``jax.make_array_from_process_local_data``
-  so each host only materializes its own rows (DCN never carries batch
-  data).
+  so each host only materializes its own rows.
 
-Launch on a v5p pod slice (one command per host, standard TPU runtime):
+Launch (one command per process; ``tests/distributed_worker.py`` is a
+two-process example):
 
-    # all hosts, e.g. via `gcloud compute tpus tpu-vm ssh --worker=all`:
-    python -c "
-    from rtmpc_tpu.parallel.distributed import initialize_from_env, \\
+    JAX_COORDINATOR_ADDRESS=host0:12345 JAX_NUM_PROCESSES=2 \
+    JAX_PROCESS_ID=0 python -c "
+    from rtmpc_tpu.parallel.distributed import initialize_from_env, \
         global_dp_mesh
-    initialize_from_env()                  # auto-detects the slice topology
+    initialize_from_env()
     mesh = global_dp_mesh()
     # ... build arrays/cfg, run run_mc_sweep(..., mesh=mesh) ...
     "
@@ -69,13 +64,11 @@ def initialize_from_env(coordinator_address: Optional[str] = None,
 
     Resolution order for each field: explicit argument, then the
     ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``
-    env vars, then JAX's own cluster auto-detection (which covers TPU pod
-    slices — the runtime reads the slice topology from the TPU metadata
-    server, so no env vars are needed there).
+    env vars.
 
     Returns True when the distributed runtime was initialized, False when
-    the call degenerated to single-process (no coordinator resolvable and
-    only one process requested).  Idempotent: a second call is a no-op.
+    the call degenerated to single-process (no coordinator and at most one
+    process requested).  Idempotent: a second call is a no-op.
     """
     global _INITIALIZED
     if _INITIALIZED:
@@ -89,25 +82,13 @@ def initialize_from_env(coordinator_address: Optional[str] = None,
     if process_id is None and env_pid is not None:
         process_id = int(env_pid)
 
-    # multi-worker TPU slice? (single-worker TPU VMs also export
-    # TPU_WORKER_HOSTNAMES — with one entry — so count, don't just probe)
-    hostnames = os.environ.get("TPU_WORKER_HOSTNAMES", "")
-    n_tpu_workers = len([h for h in hostnames.split(",") if h.strip()])
-    import jax
     if coordinator_address is None:
-        if (num_processes is None or num_processes == 1) \
-                and n_tpu_workers <= 1:
-            # nothing to coordinate: a plain single-process run (this rig)
-            return False
-        if n_tpu_workers > 1:
-            # pod slice: the runtime reads coordinator/process_id/count
-            # from the TPU metadata — a bare call is the supported path
-            jax.distributed.initialize()
-            _INITIALIZED = True
-            return True
+        if num_processes is None or num_processes == 1:
+            return False        # nothing to coordinate: one process
         raise ValueError(
             "JAX_NUM_PROCESSES > 1 but no coordinator address: set "
             "JAX_COORDINATOR_ADDRESS=<host0>:<port> on every process")
+    import jax
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
@@ -119,9 +100,9 @@ def initialize_from_env(coordinator_address: Optional[str] = None,
 def global_dp_mesh(axis_name: str = "dp"):
     """1-D mesh with the given axis over EVERY device of every process.
 
-    After ``initialize_from_env`` on a pod slice, ``jax.devices()`` is the
-    global device list, so the mesh spans hosts; single-process it spans
-    the local chips (or the virtual CPU devices under
+    After ``initialize_from_env``, ``jax.devices()`` is the global device
+    list, so the mesh spans hosts; single-process it spans the local cards
+    (or the virtual CPU devices under
     ``xla_force_host_platform_device_count``).
     """
     import jax

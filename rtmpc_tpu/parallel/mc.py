@@ -99,15 +99,10 @@ def run_mc_sweep(
     refs_b = jnp.broadcast_to(jnp.asarray(refs, dt), (BATCH, T, nx))
     x0_b = jnp.broadcast_to(jnp.asarray(x0, dt).reshape(nx), (BATCH, nx))
 
-    # Time chunking (round 5): the remote rig's RPC layer kills device
-    # calls longer than ~1 min (UNAVAILABLE), while the structured-IP
-    # solvers amortize best at FULL batch — so instead of splitting the
-    # batch (probability axis), split the SCAN: run T in t_chunk-step
-    # dispatches threading the rollout carry between calls.  Bit-identical
-    # to the single-shot scan (the carry is the scan state).
-    if t_chunk is None and cfg.solver in ("ip_riccati", "ip_hybrid") \
-            and jax.default_backend() != "cpu":
-        t_chunk = 50
+    # Time chunking: instead of splitting the batch (probability axis),
+    # split the SCAN into t_chunk-step dispatches threading the rollout
+    # carry between calls.  Bit-identical to the single-shot scan (the
+    # carry is the scan state).
     if t_chunk is not None and cfg.solver == "pallas":
         raise ValueError("t_chunk is unsupported for the pallas batch path")
 
@@ -166,7 +161,8 @@ def run_mc_sweep(
         """Device->host for a possibly globally-sharded array.  In a
         multi-process run each process only holds its addressable shards;
         gather the full array so every process returns identical rows
-        (DCN traffic happens HERE, at result gather, per the §2.4 plan)."""
+        (cross-host traffic happens HERE, at result gather, per the §2.4
+        plan)."""
         from .distributed import is_distributed
         if is_distributed():
             from jax.experimental import multihost_utils

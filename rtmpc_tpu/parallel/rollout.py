@@ -19,7 +19,7 @@ The lossy network is mask *data* (``protocol/network.py``), so the whole
 closed loop is deterministic given (x0, refs, w, theta, gamma) and
 compiles to a single scan; ``make_batched_rollout`` vmaps it over
 scenario batches (disturbance draws x loss realizations x references x
-loss probabilities) — the >=10k rollouts/s axis of BASELINE.json.
+loss probabilities) — the throughput axis ``bench.py`` measures.
 
 Feasibility semantics under batching (SURVEY.md 7.3 item 3): the reference
 *stops* an arm when Clarabel reports the QP infeasible (``track_feasible``,
@@ -377,9 +377,9 @@ def _make_pallas_batched_rollout(
     infeas_persist: int = 2,
 ) -> Callable:
     """Batch-level rollout for ``cfg.solver == "pallas"``: one scan over T
-    whose per-step QP solve is the fused VMEM-resident kernel over the
-    WHOLE batch (``ops/qp_pallas.py``); the protocol state machines are
-    vmapped around it.  Signature matches ``make_batched_rollout``.
+    whose per-step QP solve is the fused ADMM kernel over the WHOLE batch
+    (``ops/qp_pallas.py``); the protocol state machines are vmapped around
+    it.  Signature matches ``make_batched_rollout``.
     """
     from ..ops.qp import polish_solution
     from ..ops.qp_pallas import admm_solve_pallas
@@ -478,7 +478,7 @@ def make_batched_rollout(arrays, cfg, T, **kw) -> Callable:
     """Batched rollout over leading batch axes of all inputs.
 
     ``cfg.solver == "pallas"`` routes the QP solves through the fused
-    VMEM-resident kernel (batch-level dispatch); anything else vmaps the
+    ADMM kernel (batch-level dispatch); anything else vmaps the
     per-element engine.
     """
     if cfg.solver == "pallas":

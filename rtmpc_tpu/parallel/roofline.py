@@ -1,10 +1,10 @@
-"""Roofline / MFU accounting for the batched ADMM rollout engine.
+"""Roofline accounting for the batched ADMM rollout engine.
 
 The reference has no performance model at all (its cost is "one Clarabel
-solve per step", ``TrackingMPC.py:51-55``); the TPU engine's cost is
-exactly computable from the problem geometry, so the bench reports where
-the measured throughput sits against the hardware's compute and memory
-roofs — and *which* resource binds.
+solve per step", ``TrackingMPC.py:51-55``); the engine's cost is exactly
+computable from the problem geometry, so the bench reports where the
+measured throughput sits against the card's compute and memory roofs, and
+which of the two bounds it.
 
 Cost model (per ADMM iteration, per batch element; ``ops/qp.py:_admm_body``):
 
@@ -13,161 +13,104 @@ Cost model (per ADMM iteration, per batch element; ``ops/qp.py:_admm_body``):
     zt  = As xt                            (B,n)x(n,m)
     + elementwise over-relaxation/clip/dual update
 
-Three GEMMs of 2*B*(2mn + n^2) FLOPs.  On the MXU each GEMM's contraction
-and output dims pad to 128 lanes, so the *achievable* fraction of peak for
-this op mix is itself < 1 — ``padded_tile_ceiling`` computes it; measured
-MFU at ~that ceiling means the engine is MXU-padding-bound (small-matrix
-lane waste), not HBM- or FLOP-bound, and the lever is layout, not fusion.
+Three GEMMs of 2*B*(2mn + n^2) FLOPs.  The least memory traffic keeps the
+iterates on chip for the whole solve: device memory then carries only the
+per-solve state, parameters and the problem matrices.
 
-Peaks default to TPU v5e (1 chip): 197 TFLOP/s bf16 MXU peak, 819 GB/s
-HBM; f32 matmuls at HIGH precision run as 3-pass bf16, so their
-effective compute roof is peak/3.  Override with env
-RTMPC_PEAK_BF16_TFLOPS / RTMPC_HBM_GBPS for other chips.
+The roofline share is the least time the card could take (the larger of
+FLOPs over the peak at the precision used and bytes over the memory
+bandwidth) divided by the measured time.  Peaks come from one table keyed
+by ``device_kind``; a device missing from it is an error.
 """
 
 from __future__ import annotations
 
-import math
-import os
 from typing import NamedTuple
 
-__all__ = ["DevicePeaks", "device_peaks", "admm_engine_model",
-           "padded_tile_ceiling", "roofline_summary"]
-
-_LANE = 128     # MXU lane width (last dim)
-_SUBLANE = 8    # f32 sublane granularity (second-to-last dim)
+__all__ = ["DevicePeaks", "PEAKS", "device_peaks", "admm_engine_model",
+           "roofline_summary"]
 
 
 class DevicePeaks(NamedTuple):
     name: str
-    bf16_tflops: float        # MXU peak, bf16 multiply / f32 accumulate
-    f32_high_tflops: float    # effective peak for HIGH (3-pass bf16) f32
+    bf16_tflops: float        # dense tensor-core bf16, f32 accumulate
+    tf32_tflops: float        # dense tensor-core TF32
+    f32_tflops: float         # float32 outside the tensor cores
     hbm_gbps: float
+    source: str
 
 
-_KNOWN = {
-    # chip -> (bf16 peak TFLOP/s, HBM GB/s); per-chip, public figures
-    "v5e": (197.0, 819.0),
-    "v5 lite": (197.0, 819.0),
-    "v5p": (459.0, 2765.0),
-    "v4": (275.0, 1228.0),
-    "v6e": (918.0, 1640.0),
+_H100_SXM = DevicePeaks(
+    name="NVIDIA H100 SXM", bf16_tflops=989.0, tf32_tflops=495.0,
+    f32_tflops=67.0, hbm_gbps=3350.0,
+    source="NVIDIA H100 Tensor Core GPU data sheet, SXM5, dense rates "
+           "without sparsity, at the 700 W power limit")
+
+# keyed by jax.Device.device_kind
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": _H100_SXM,
 }
 
 
-def device_peaks(device=None) -> DevicePeaks:
-    """Peak numbers for the visible chip (env-overridable)."""
-    name = "v5e"
-    if device is not None:
-        d = str(getattr(device, "device_kind", "") or device).lower()
-        for k in _KNOWN:
-            if k in d:
-                name = k
-                break
-    bf16, hbm = _KNOWN[name]
-    bf16 = float(os.environ.get("RTMPC_PEAK_BF16_TFLOPS", bf16))
-    hbm = float(os.environ.get("RTMPC_HBM_GBPS", hbm))
-    return DevicePeaks(name=name, bf16_tflops=bf16,
-                       f32_high_tflops=bf16 / 3.0, hbm_gbps=hbm)
+def device_peaks(device) -> DevicePeaks:
+    """Published peaks of ``device`` (a ``jax.Device`` or its
+    ``device_kind`` string).  Raises ``KeyError`` for a device that is not
+    in ``PEAKS``: a roofline share against a guessed peak is no number."""
+    kind = getattr(device, "device_kind", device)
+    if kind not in PEAKS:
+        raise KeyError(f"no published peaks for device_kind {kind!r}; "
+                       f"known: {sorted(PEAKS)}")
+    return PEAKS[kind]
 
 
-def _pad(v: int, g: int) -> int:
-    return ((v + g - 1) // g) * g
-
-
-def padded_tile_ceiling(n: int, m: int) -> float:
-    """Fraction of MXU peak attainable by the three iteration GEMMs given
-    lane/sublane padding (batch in the M position — the vmapped layout).
-
-    useful MACs / padded MACs over the GEMM triple
-    (K=m,N=n), (K=n,N=n), (K=n,N=m); M=B streams (no waste for large B).
-    """
-    useful = m * n + n * n + n * m
-    padded = (_pad(m, _LANE) * _pad(n, _LANE)
-              + _pad(n, _LANE) * _pad(n, _LANE)
-              + _pad(n, _LANE) * _pad(m, _LANE))
-    return useful / padded
+def _matmul_peak_tflops(peaks: DevicePeaks, precision: str) -> float:
+    """Peak rate of the solve path's products: "highest" runs IEEE f32
+    outside the tensor cores; "high" runs three bf16 tensor-core passes."""
+    if precision == "highest":
+        return peaks.f32_tflops
+    if precision == "high":
+        return peaks.bf16_tflops / 3.0
+    raise ValueError(f"unknown matmul precision {precision!r}")
 
 
 def admm_engine_model(n: int, m: int, ntheta: int, iters_total: int,
                       T: int, batch: int) -> dict:
-    """FLOPs and HBM-byte estimates for one full batched rollout
-    (T protocol steps, ``iters_total`` ADMM iterations per step).
-
-    Two traffic scenarios bound reality from both sides:
-    * ``bytes_state_resident``: loop state lives in VMEM across
-      iterations; HBM carries only per-solve parameter/IO traffic.
-    * ``bytes_state_streamed``: x/y/z (+ the three intermediates) round-
-      trip HBM every iteration — the worst case when the batch state
-      exceeds VMEM.
-    """
+    """FLOPs and least device-memory bytes of one full batched rollout
+    (T protocol steps, ``iters_total`` ADMM iterations per step)."""
     mm_iter = 2 * batch * (2 * m * n + n * n)            # the GEMM triple
-    vpu_iter = 10 * batch * (n + 3 * m)                  # elementwise (VPU)
     # per solve: q/l/u parameter maps + final residuals
     mm_solve = 2 * batch * (n + 2 * m) * ntheta \
         + 2 * batch * (2 * m * n + n * n)
-    flops_mm = T * (iters_total * mm_iter + mm_solve)
-    flops = flops_mm + T * iters_total * vpu_iter
+    flops = T * (iters_total * mm_iter + mm_solve)
 
-    state_bytes = 4 * batch * (n + 2 * m)
-    interm_bytes = 4 * batch * (2 * n + m)
-    per_iter_streamed = 2 * state_bytes + 2 * interm_bytes
+    state_bytes = 4 * batch * (n + 2 * m)                # x, y, z (f32)
+    param_bytes = 4 * batch * ntheta
     weights = 4 * (n * n + 2 * m * n)                    # Kinv + As (+As')
-    bytes_streamed = T * (iters_total * (per_iter_streamed + weights)
-                          + 2 * state_bytes)
-    bytes_resident = T * (iters_total * weights + 4 * state_bytes)
+    bytes_min = T * (2 * state_bytes + param_bytes + weights)
     return {
         "n": n, "m": m, "ntheta": ntheta, "iters_total": iters_total,
         "T": T, "batch": batch,
         "flops": float(flops),
-        "flops_matmul": float(flops_mm),
-        "bytes_state_streamed": float(bytes_streamed),
-        "bytes_state_resident": float(bytes_resident),
-        "padded_tile_ceiling": padded_tile_ceiling(n, m),
+        "bytes_min": float(bytes_min),
     }
 
 
-def roofline_summary(model: dict, wall_s: float, peaks: DevicePeaks) -> dict:
-    """Achieved rates vs roofs + the name of the binding resource.
+def roofline_summary(model: dict, wall_s: float, peaks: DevicePeaks,
+                     precision: str) -> dict:
+    """Achieved rate and roofline share of a measured rollout.
 
-    ``mfu``: achieved FLOP/s over the bf16 MXU peak (the standard
-    definition).  ``mfu_f32_high``: over the effective 3-pass-f32 peak
-    (what HIGH-precision matmuls can actually reach).  The binding
-    resource is called by comparing each resource's utilization of its
-    roof, including the padded-tile ceiling (useful-MAC fraction the MXU
-    can deliver on these small matrices).
-    """
-    achieved_fs = model["flops"] / wall_s
-    achieved_mm = model["flops_matmul"] / wall_s
-    mfu = achieved_mm / (peaks.bf16_tflops * 1e12)
-    mfu_f32 = achieved_mm / (peaks.f32_high_tflops * 1e12)
-    hbm_streamed = model["bytes_state_streamed"] / wall_s / (
-        peaks.hbm_gbps * 1e9)
-    hbm_resident = model["bytes_state_resident"] / wall_s / (
-        peaks.hbm_gbps * 1e9)
-    ceiling = model["padded_tile_ceiling"]
-    # utilization of the PADDING-ADJUSTED compute roof
-    mxu_util = mfu_f32 / ceiling
-    # a streamed-state HBM utilization > 1 is infeasible — it *proves* the
-    # loop state is VMEM-resident, so only the resident scenario competes
-    candidates = {"mxu_padded_tiles": mxu_util}
-    if hbm_streamed < 1.0:
-        candidates["hbm_if_streamed"] = hbm_streamed
-    else:
-        candidates["hbm_resident"] = hbm_resident
-    bound = max(candidates, key=candidates.get)
+    ``roofline_share`` = max(t_compute, t_memory) / ``wall_s`` with
+    t_compute = FLOPs / peak at ``precision`` and t_memory = least bytes /
+    bandwidth; ``roofline_bound`` names the larger term."""
+    peak = _matmul_peak_tflops(peaks, precision)
+    t_compute = model["flops"] / (peak * 1e12)
+    t_memory = model["bytes_min"] / (peaks.hbm_gbps * 1e9)
+    bound = "compute" if t_compute >= t_memory else "memory"
     return {
-        "achieved_tflops": round(achieved_fs / 1e12, 3),
-        "achieved_matmul_tflops": round(achieved_mm / 1e12, 3),
-        "mfu": round(mfu, 4),
-        "mfu_f32_high": round(mfu_f32, 4),
-        "padded_tile_ceiling": round(ceiling, 4),
-        "mxu_padded_util": round(mxu_util, 4),
-        "hbm_util_if_streamed": round(hbm_streamed, 4),
-        "hbm_util_if_resident": round(hbm_resident, 4),
+        "achieved_tflops": model["flops"] / wall_s / 1e12,
+        "roofline_share": max(t_compute, t_memory) / wall_s,
         "roofline_bound": bound,
-        "peaks": {"chip": peaks.name,
-                  "bf16_tflops": peaks.bf16_tflops,
-                  "f32_high_tflops": round(peaks.f32_high_tflops, 1),
-                  "hbm_gbps": peaks.hbm_gbps},
+        "peaks": {"device": peaks.name, "matmul_tflops": peak,
+                  "precision": precision, "hbm_gbps": peaks.hbm_gbps,
+                  "source": peaks.source},
     }

@@ -34,7 +34,8 @@ def draw_loss_masks(key: jax.Array, T: int, p_c2p, p_p2c,
     # draws pinned to float32 so realizations are identical across
     # backends/dtypes (under x64 the default uniform dtype silently
     # becomes f64 and produces DIFFERENT bits from the same key — which
-    # made f64-CPU truth runs and f32-TPU runs unpaired experiments)
+    # made f64-CPU truth runs and f32 accelerator runs unpaired
+    # experiments)
     p_c2p = p_c2p.astype(jnp.float32)
     p_p2c = p_p2c.astype(jnp.float32)
     theta = (jax.random.uniform(k_theta, shape, jnp.float32)

@@ -1,8 +1,8 @@
 """Host-side polytope toolbox (float64 NumPy).
 
 Re-design of the set-computation layer of the reference
-(``src/LinearMPCOverNetworks/utils_polytope.py``) for the two-phase TPU
-architecture: everything here is *setup-time* code that runs once per scenario
+(``src/LinearMPCOverNetworks/utils_polytope.py``) for the two-phase
+host/device architecture: everything here is *setup-time* code that runs once per scenario
 on the host, producing static-shape H-representations that are later padded
 and shipped to the device.  The algorithms are re-derived from the cited
 papers (Kolmanovsky–Gilbert support-function calculus), not ported from the
@@ -121,8 +121,8 @@ def support_lp_batch(A: np.ndarray, b: np.ndarray,
                      X: np.ndarray, on_fail: str = "raise") -> np.ndarray:
     """``h[j] = max{X[j] @ y : A y <= b}`` by dense LP, one per row of X.
 
-    Uses the native batched simplex kernel (``native/rtmpc_lp.cpp``, the
-    TPU build's replacement for the reference's per-call scipy/HiGHS LPs at
+    Uses the native batched simplex kernel (``native/rtmpc_lp.cpp``, this
+    package's replacement for the reference's per-call scipy/HiGHS LPs at
     ``utils_polytope.py:19``) when available, scipy otherwise.  Unbounded
     directions return ``+inf``.  A failed LP (infeasible / numerically
     degenerate) raises by default; ``on_fail="nan"`` returns NaN for that

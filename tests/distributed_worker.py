@@ -7,7 +7,7 @@ and ``RTMPC_DIST_OUT`` (npz output path, written by every process).
 
 Runs the actual multi-host launch path end-to-end: distributed init,
 global DP mesh over both processes' devices, ``run_mc_sweep`` with the
-batch sharded across the mesh, results gathered over DCN.
+batch sharded across the mesh, results gathered across processes.
 """
 
 import os

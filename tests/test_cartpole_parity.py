@@ -86,8 +86,8 @@ def test_cartpole_tube_tracking_parity_ip(tube_setup, sc, inputs, oracle):
 
 
 def test_cartpole_admm_robustness_invariants(tube_setup, sc, inputs):
-    """The TPU-default ADMM schedule does not reach trajectory parity on
-    this degenerate geometry (ACCURACY.md) — but the reference's runtime
+    """The default ADMM schedule does not reach trajectory parity on this
+    degenerate geometry (ACCURACY.md) — but the reference's runtime
     robustness checks (``results_linear_system.py:257-259``) must still
     hold: tube membership every step and the angle constraint."""
     carry, outs = _run(tube_setup, sc, inputs,

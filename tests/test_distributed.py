@@ -1,9 +1,9 @@
-"""Multi-host launch path (degenerate single-process coverage).
+"""Multi-process launch path (single-process coverage).
 
-Real multi-host scaling is unmeasurable on this rig (one process, one
-chip); these tests pin the launcher's single-process semantics and the
+These tests pin the launcher's single-process semantics and the
 global-mesh + sharded-array assembly on the virtual 8-device CPU mesh —
-the parts of ``parallel/distributed.py`` that run identically on a pod.
+the parts of ``parallel/distributed.py`` that run identically across
+hosts.  ``test_distributed_two_process.py`` runs two real processes.
 """
 
 import numpy as np
@@ -20,8 +20,6 @@ from rtmpc_tpu.parallel.distributed import (
 def test_initialize_single_process_is_noop(monkeypatch):
     monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
     monkeypatch.delenv("JAX_NUM_PROCESSES", raising=False)
-    monkeypatch.delenv("TPU_WORKER_HOSTNAMES", raising=False)
-    monkeypatch.delenv("TPU_WORKER_ID", raising=False)
     assert initialize_from_env() is False
     assert not is_distributed()
     # explicit single process: also a no-op
@@ -30,8 +28,6 @@ def test_initialize_single_process_is_noop(monkeypatch):
 
 def test_initialize_multi_process_without_coordinator_raises(monkeypatch):
     monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
-    monkeypatch.delenv("TPU_WORKER_HOSTNAMES", raising=False)
-    monkeypatch.delenv("TPU_WORKER_ID", raising=False)
     monkeypatch.setenv("JAX_NUM_PROCESSES", "4")
     with pytest.raises(ValueError, match="coordinator"):
         initialize_from_env()

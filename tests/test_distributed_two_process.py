@@ -62,7 +62,7 @@ def test_two_process_distributed_sweep(tmp_path):
 
     r0 = np.load(out_base + ".p0.npz")
     r1 = np.load(out_base + ".p1.npz")
-    # both processes gathered the SAME global result over DCN
+    # both processes gathered the SAME global result across processes
     np.testing.assert_array_equal(r0["tracking_error"],
                                   r1["tracking_error"])
     np.testing.assert_array_equal(r0["sample_traj"], r1["sample_traj"])

@@ -5,7 +5,7 @@ The solver (``ops/ip_riccati.py``) replaces the flat-KKT LU of
 tests pin (a) the hand-rolled pivoted-LU building block, (b) primal
 parity with ``QPTemplate.solve_dense`` across controller variants and
 init modes, and (c) the mixed-precision hybrid driver (f32 path
-following + f64 polish) that the TPU accuracy mode runs.
+following + f64 polish) that the accelerator accuracy mode runs.
 """
 
 import numpy as np
@@ -94,7 +94,7 @@ def test_riccati_tube_regulator_parity_f64():
 
 
 def test_riccati_hybrid_matches_f64(tracking_setup):
-    """The f32+f64 hybrid lands on the f64 answer (the TPU accuracy
+    """The f32+f64 hybrid lands on the f64 answer (the accelerator accuracy
     mode's precision contract)."""
     tmpl = tracking_setup.template
     spec = prepare_ip_riccati(tmpl, dtype=jnp.float64)

@@ -77,8 +77,8 @@ def test_resume_after_partial_run(flagship, tmp_path):
 
 
 def test_time_chunked_sweep_matches_single_shot():
-    """t_chunk splits the scan into carry-threaded dispatches (round-5 RPC
-    workaround); must be bit-identical to the single-shot run."""
+    """t_chunk splits the scan into carry-threaded dispatches; must be
+    bit-identical to the single-shot run."""
     import jax
     import jax.numpy as jnp
     import numpy as np

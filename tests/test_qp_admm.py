@@ -130,32 +130,3 @@ def test_batched_vmap_solve():
         ip, _ = tmpl.solve_dense(thetas[i, :2])
         z = np.asarray(sols.z_primal[i])[:tmpl.n]
         np.testing.assert_allclose(z, ip.z, atol=5e-5)
-
-
-def test_batch_transposed_solve_matches_vmapped():
-    """admm_solve_batch_T (batch-in-lanes layout, ops/qp.py) must match the
-    vmapped per-element path — on TPU the two compile to the SAME
-    executable (bitwise-equal, ADMM_LAYOUT_r04.log); on CPU f64 they are
-    the same arithmetic up to summation order."""
-    from rtmpc_tpu.ops.qp import admm_solve_batch_T
-
-    tmpl = build_mpc_qp(A, B, Q, R, 10,
-                        Hu=np.array([[1.0], [-1.0]]), hu=np.ones(2))
-    spec = prepare_admm(tmpl, dtype=jnp.float64)
-    rng = np.random.default_rng(5)
-    thetas = np.zeros((32, 4))
-    thetas[:, :2] = rng.uniform(-2, 2, size=(32, 2))
-    th = jnp.asarray(thetas)
-    ref = jax.jit(jax.vmap(lambda t: admm_solve(spec, t, iters=150)))(th)
-    got = jax.jit(lambda t: admm_solve_batch_T(spec, t, iters=150))(th)
-    np.testing.assert_allclose(np.asarray(got.z_primal),
-                               np.asarray(ref.z_primal), atol=1e-10)
-    np.testing.assert_allclose(np.asarray(got.r_prim),
-                               np.asarray(ref.r_prim), atol=1e-10)
-    # warm-start round trip: the returned state feeds the next solve
-    again = jax.jit(lambda t, s: admm_solve_batch_T(
-        spec, t, s, iters=50))(th, got.state)
-    ref2 = jax.jit(jax.vmap(lambda t, s: admm_solve(
-        spec, t, s, iters=50)))(th, ref.state)
-    np.testing.assert_allclose(np.asarray(again.z_primal),
-                               np.asarray(ref2.z_primal), atol=1e-10)

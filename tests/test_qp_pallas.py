@@ -1,19 +1,20 @@
 """Fused Pallas ADMM kernel parity vs the vmapped XLA path.
 
 Runs the kernel in interpreter mode (tests force the CPU backend, see
-``conftest.py``).  COMPILED on-hardware parity is asserted by
-``tools/tpu_checks.py`` (run on the real chip each round; results recorded
-in ``PARITY_TPU_r*.json``) — the same functions, no ``interpret=True``.
+``conftest.py``).  The kernel compiled for the card is checked by the
+``gpu``-marked test below and by ``chip_smoke.py`` (through
+``tools/parity_checks.py``) — the same functions, no ``interpret=True``.
 """
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from rtmpc_tpu.utils import box
 from rtmpc_tpu.models import setup_tube_tracking
 from rtmpc_tpu.ops.qp import admm_solve, init_admm_state, ADMMState
-from rtmpc_tpu.ops.qp_pallas import admm_solve_pallas
+from rtmpc_tpu.ops.qp_pallas import admm_solve_pallas, pow2_width
 
 
 def _flagship():
@@ -139,3 +140,43 @@ def test_pallas_batched_rollout_polish_parity():
                                atol=1e-4)
     np.testing.assert_allclose(np.asarray(o2.r_dual),
                                np.asarray(o1.r_dual), rtol=0.2, atol=1e-5)
+
+
+@pytest.mark.parametrize("v,want", [(1, 16), (16, 16), (17, 32), (40, 64),
+                                    (112, 128), (128, 128)])
+def test_pow2_width(v, want):
+    """Kernel widths and batch tiles: powers of two, at least the Triton
+    dot's minimum of 16."""
+    assert pow2_width(v) == want
+
+
+def test_pallas_high_precision_split_matches():
+    """The 3-pass bf16 path ("high") stays within its arithmetic envelope
+    of the IEEE path on the flagship spec."""
+    from rtmpc_tpu.ops.precision import matmul_precision
+    spec = _flagship_spec()
+    rng = np.random.default_rng(2)
+    theta = jnp.asarray(rng.uniform(-2, 2, (16, 4)), jnp.float32)
+    exact = admm_solve_pallas(spec, theta, iters=30, interpret=True)
+    with matmul_precision("high"):
+        split = admm_solve_pallas(spec, theta, iters=30, interpret=True)
+    np.testing.assert_allclose(np.asarray(split.z_primal),
+                               np.asarray(exact.z_primal), atol=5e-3)
+    assert not np.array_equal(np.asarray(split.z_primal),
+                              np.asarray(exact.z_primal))
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_xla_on_gpu(gpu_device):
+    """The kernel compiled for the card vs the vmapped XLA solve."""
+    import sys
+    import os
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    import parity_checks
+    spec = _flagship_spec()
+    gate = parity_checks.Gate()
+    with jax.default_device(gpu_device):
+        for prec in ("highest", "high"):
+            parity_checks.check_kernel(gate, spec, 60, 1024, prec)
+    assert gate.ok, gate.result

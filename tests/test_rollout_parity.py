@@ -150,7 +150,7 @@ def test_tracking_error_metric():
 def test_draws_are_x64_invariant():
     """The f32 pin in protocol/network.py: the same key must yield
     bit-identical masks and (up to cast) disturbances whether or not x64
-    is enabled — otherwise f64-CPU truth runs and f32-TPU runs are
+    is enabled — otherwise f64-CPU truth runs and f32 accelerator runs are
     unpaired experiments (round-4 fix)."""
     import jax
     from rtmpc_tpu.protocol.network import (draw_disturbances,

@@ -1,5 +1,5 @@
 """Unit tests: roofline accounting + release-gate row comparison +
-serve-app smoke run (the round-4 evidence plumbing)."""
+serve-app smoke run."""
 
 import json
 import os
@@ -10,43 +10,63 @@ import numpy as np
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(_ROOT, "tools"))
 
+import pytest
+
 from rtmpc_tpu.parallel.roofline import (admm_engine_model, device_peaks,
-                                         padded_tile_ceiling,
                                          roofline_summary)
 
 
-def test_padded_tile_ceiling_flagship_geometry():
-    # n_p=40, m_p=112 (the flagship spec): useful MACs 10560 of 3 full
-    # 128x128 tiles
-    c = padded_tile_ceiling(40, 112)
-    assert abs(c - 10560 / 49152) < 1e-12
-    # full tiles hit the roof exactly
-    assert padded_tile_ceiling(128, 128) == 1.0
+class _Dev:
+    """Stands in for a ``jax.Device``: only ``device_kind`` is read."""
+
+    def __init__(self, kind):
+        self.device_kind = kind
+
+
+def test_device_peaks_h100_lookup():
+    peaks = device_peaks(_Dev("NVIDIA H100 80GB HBM3"))
+    assert (peaks.bf16_tflops, peaks.tf32_tflops, peaks.f32_tflops,
+            peaks.hbm_gbps) == (989.0, 495.0, 67.0, 3350.0)
+    assert "data sheet" in peaks.source
+    # the kind string itself works as well as a device
+    assert device_peaks("NVIDIA H100 80GB HBM3") == peaks
+
+
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-80GB",
+                                  "NVIDIA H100 PCIe"])
+def test_device_peaks_unknown_device_raises(kind):
+    with pytest.raises(KeyError, match="no published peaks"):
+        device_peaks(_Dev(kind))
 
 
 def test_engine_model_consistency():
     m = admm_engine_model(n=40, m=112, ntheta=4, iters_total=120,
                           T=120, batch=16384)
-    assert m["flops_matmul"] <= m["flops"]
     # matmul FLOPs: T * (iters * 2B(2mn+n^2) + per-solve terms)
     per_iter = 2 * 16384 * (2 * 112 * 40 + 40 * 40)
-    assert m["flops_matmul"] > 120 * 120 * per_iter
-    assert m["bytes_state_resident"] < m["bytes_state_streamed"]
+    assert m["flops"] > 120 * 120 * per_iter
+    # least bytes: per step the state goes in and out once
+    assert m["bytes_min"] > 120 * 2 * 4 * 16384 * (40 + 2 * 112)
 
 
 def test_roofline_bound_naming():
-    peaks = device_peaks()
+    peaks = device_peaks("NVIDIA H100 80GB HBM3")
     m = admm_engine_model(40, 112, 4, 120, 120, 16384)
-    # measured regime (round 4): ~0.34 s/rollout-batch -> streamed-HBM
-    # infeasible (>1), so the bound must be the padded-tile MXU ceiling
-    s = roofline_summary(m, wall_s=0.34, peaks=peaks)
-    assert s["hbm_util_if_streamed"] > 1.0
-    assert s["roofline_bound"] == "mxu_padded_tiles"
-    assert 0.5 < s["mxu_padded_util"] < 2.0
-    # absurdly fast wall time still names compute, never negative rates
-    s2 = roofline_summary(m, wall_s=1000.0, peaks=peaks)
-    assert s2["roofline_bound"] in ("mxu_padded_tiles", "hbm_if_streamed")
-    assert s2["mfu"] >= 0.0
+    s = roofline_summary(m, wall_s=0.75, peaks=peaks, precision="high")
+    # ~2.5e12 FLOPs at 989/3 TFLOP/s outweigh ~1 GB at 3.35 TB/s
+    assert s["roofline_bound"] == "compute"
+    t_compute = m["flops"] / (peaks.bf16_tflops / 3 * 1e12)
+    assert s["roofline_share"] == pytest.approx(t_compute / 0.75)
+    assert s["peaks"]["matmul_tflops"] == pytest.approx(989.0 / 3)
+    # IEEE f32 runs outside the tensor cores: the lower peak
+    s32 = roofline_summary(m, wall_s=0.75, peaks=peaks, precision="highest")
+    assert s32["roofline_share"] > s["roofline_share"]
+    # one iteration per step at batch 1: memory-bound
+    m1 = admm_engine_model(40, 112, 4, 1, 120, 1)
+    assert roofline_summary(m1, 1.0, peaks, "high")["roofline_bound"] \
+        == "memory"
+    with pytest.raises(ValueError):
+        roofline_summary(m, 0.75, peaks, "default")
 
 
 def test_release_gate_compare_rows(tmp_path):
@@ -63,45 +83,45 @@ def test_release_gate_compare_rows(tmp_path):
     cpu.write_text(json.dumps(base))
 
     # within 2% on gated stats: passes
-    rows_tpu = [dict(r, rms_tube=r["rms_tube"] * 1.015,
+    rows_dev = [dict(r, rms_tube=r["rms_tube"] * 1.015,
                      rms_track=r["rms_track"] * 0.99) for r in rows_cpu]
-    tpu = tmp_path / "tpu.json"
-    tpu.write_text(json.dumps(dict(base, rows=rows_tpu)))
-    ok, msg = compare_linear(str(tpu), str(cpu))
+    dev = tmp_path / "dev.json"
+    dev.write_text(json.dumps(dict(base, rows=rows_dev)))
+    ok, msg = compare_linear(str(dev), str(cpu))
     assert ok, msg
 
     # the track MEAN is informational, not gated (knife-edge outlier runs)
-    rows_meanoff = [dict(r) for r in rows_tpu]
+    rows_meanoff = [dict(r) for r in rows_dev]
     rows_meanoff[8]["rms_track"] = rows_cpu[8]["rms_track"] * 2.5
-    tpu.write_text(json.dumps(dict(base, rows=rows_meanoff)))
-    ok, msg = compare_linear(str(tpu), str(cpu))
+    dev.write_text(json.dumps(dict(base, rows=rows_meanoff)))
+    ok, msg = compare_linear(str(dev), str(cpu))
     assert ok and "info" in msg
 
     # but the track MEDIAN is gated
-    rows_medoff = [dict(r) for r in rows_tpu]
+    rows_medoff = [dict(r) for r in rows_dev]
     rows_medoff[8]["rms_track_median"] = \
         rows_cpu[8]["rms_track_median"] * 1.1
-    tpu.write_text(json.dumps(dict(base, rows=rows_medoff)))
-    ok, msg = compare_linear(str(tpu), str(cpu))
+    dev.write_text(json.dumps(dict(base, rows=rows_medoff)))
+    ok, msg = compare_linear(str(dev), str(cpu))
     assert not ok
 
     # 5% off on one row: fails
-    rows_bad = [dict(r) for r in rows_tpu]
+    rows_bad = [dict(r) for r in rows_dev]
     rows_bad[3]["rms_tube"] = rows_cpu[3]["rms_tube"] * 1.05
-    tpu.write_text(json.dumps(dict(base, rows=rows_bad)))
-    ok, msg = compare_linear(str(tpu), str(cpu))
+    dev.write_text(json.dumps(dict(base, rows=rows_bad)))
+    ok, msg = compare_linear(str(dev), str(cpu))
     assert not ok and "FAIL" in msg
 
     # NaN truth rows (stopped arm) are skipped, not compared
     rows_nan = [dict(r, rms_track=float("nan")) for r in rows_cpu]
     cpu.write_text(json.dumps(dict(base, rows=rows_nan)))
-    tpu.write_text(json.dumps(dict(base, rows=rows_tpu)))
-    ok, _ = compare_linear(str(tpu), str(cpu))
+    dev.write_text(json.dumps(dict(base, rows=rows_dev)))
+    ok, _ = compare_linear(str(dev), str(cpu))
     assert ok
 
     # config mismatch is a hard failure
     cpu.write_text(json.dumps(dict(base, n_mc=5)))
-    ok, msg = compare_linear(str(tpu), str(cpu))
+    ok, msg = compare_linear(str(dev), str(cpu))
     assert not ok and "mismatch" in msg
 
 

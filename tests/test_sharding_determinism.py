@@ -6,8 +6,8 @@ one device or are sharded over the 8-device virtual mesh (conftest sets
 This is the reference's determinism-by-seeding discipline (SURVEY.md
 section 4 item 4) promoted to the distributed axis: seeds fix the data,
 and the device layout must not change a single bit of the result —
-otherwise multi-chip Monte-Carlo sweeps would not be reproducible across
-pod topologies.
+otherwise multi-device Monte-Carlo sweeps would not be reproducible
+across device counts.
 """
 
 import numpy as np
@@ -59,8 +59,8 @@ def test_sharded_rollout_bitwise_equal():
     # which can change the CPU backend's matmul tiling and hence the f64
     # summation order (~1e-13 drift).  Bitwise identity across layouts
     # holds when per-shard shapes pick the same kernels — asserted for the
-    # production f32 shapes by tools/multichip_bench.py (MULTICHIP_r03:
-    # bitwise_deterministic_8dev true); here the invariant is layout
+    # production f32 shapes on 4 GPUs by ``chip_smoke.py --four-cards``
+    # (sharded lanes vs one card, atol 1e-6); here the invariant is layout
     # independence at accumulation-noise level, plus exact agreement of
     # the discrete protocol outcomes.
     np.testing.assert_allclose(np.asarray(outs_u.x),

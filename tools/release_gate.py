@@ -1,32 +1,29 @@
-"""Atomic end-of-round evidence: run EVERYTHING on the final tree, in order,
+"""End-to-end evidence on the card: run EVERYTHING on the tree, in order,
 and fail loudly on stale or empty artifacts.
 
-Rounds 2 and 3 both shipped evidence that did not certify HEAD (the parity
-gate predated the last commits; a Results log was committed empty).  This
-gate institutionalizes the fix: one command produces every round artifact
-from the tree as it stands, then audits that each artifact is non-empty
-and newer than the last code commit.
+One command produces every artifact from the tree as it stands, then
+audits that each artifact is non-empty and newer than the last commit.
 
-    python tools/release_gate.py --round 4              # full (~30-40 min on TPU)
-    python tools/release_gate.py --round 4 --skip tests # iterate on one stage
+    python tools/release_gate.py --tag r06              # every stage
+    python tools/release_gate.py --tag r06 --skip tests # iterate on one stage
 
-Stages (each tees to an artifact at the repo root):
+Stages (each writes under ``results/gate_<tag>/``):
 
     tests      pytest tests/ -q                          (CPU, f64 oracles)
-    parity     tools/tpu_checks.py --round N             -> PARITY_TPU_r0N.json
-    linear     apps.results_linear (full, TPU default=ip) -> RESULTS_LINEAR_r0N.log + .json
-    linear_ext apps.results_linear_extended              -> RESULTS_LINEAR_EXT_r0N.log + .json
+    parity     tools/parity_checks.py                    -> PARITY.json
+    linear     apps.results_linear (accelerator default ip_hybrid)
+                                                         -> RESULTS_LINEAR.log + .json
+    linear_ext apps.results_linear_extended              -> RESULTS_LINEAR_EXT.log + .json
     nonlinear  apps.results_nonlinear (plain AND --extended)
-                                                         -> RESULTS_NONLINEAR_r0N.log,
-                                                            RESULTS_NONLINEAR_EXT_r0N.log (+ .json)
-    compare    TPU linear rows vs the committed CPU/f64 truth JSON
-               (RESULTS_LINEAR_CPU_F64_r0N.json) within 2%  [skipped if absent]
-    multichip  tools/multichip_bench.py --round N        -> MULTICHIP_SCALING_r0N.json
-    bench      python bench.py                           -> BENCH_GATE_r0N.json
+                                                         -> RESULTS_NONLINEAR.log,
+                                                            RESULTS_NONLINEAR_EXT.log (+ .json)
+    compare    linear rows vs the committed CPU/f64 truth JSON
+               (RESULTS_LINEAR_CPU_F64_r*.json at the repo root) within 2%
+    bench      python bench.py                           -> BENCH.json
     audit      every artifact exists, is non-empty, and postdates HEAD
 
-The audit also fails if the working tree has uncommitted changes to
-tracked source files at gate START (evidence must certify a commit).
+The gate refuses to start with uncommitted changes to tracked source files
+(evidence must certify a commit).
 """
 
 import argparse
@@ -39,7 +36,7 @@ import time
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 STAGES = ["tests", "parity", "linear", "linear_ext", "nonlinear",
-          "compare", "multichip", "bench", "audit"]
+          "compare", "bench", "audit"]
 
 
 def run(cmd, log_path=None, env=None):
@@ -79,14 +76,12 @@ def tree_dirty() -> str:
         cwd=_ROOT, text=True)
     # artifacts the gate itself (re)writes are fine; source files are not
     dirty = [ln for ln in out.splitlines()
-             if ln[3:].split(" ->")[0].endswith((".py", ".cpp", ".md"))
-             and not ln[3:].startswith(("PARITY", "RESULTS", "BENCH",
-                                        "MULTICHIP", "SERVE", "ADMM"))]
+             if ln[3:].split(" ->")[0].endswith((".py", ".cpp", ".md"))]
     return "\n".join(dirty)
 
 
-def compare_linear(tpu_json: str, truth_json: str, tol: float = 0.02):
-    """Per-p RMS rows of the TPU run vs the committed f64 truth.
+def compare_linear(run_json: str, truth_json: str, tol: float = 0.02):
+    """Per-p RMS rows of a device run vs the committed f64 truth.
 
     Gated statistics (draws are PAIRED across backends since the f32 RNG
     pin):
@@ -100,18 +95,18 @@ def compare_linear(tpu_json: str, truth_json: str, tol: float = 0.02):
       ``results_linear_system.py:341-396``), so the mean is printed but
       not gated.
     """
-    with open(tpu_json) as f:
-        tpu = json.load(f)
+    with open(run_json) as f:
+        run = json.load(f)
     with open(truth_json) as f:
         cpu = json.load(f)
-    if tpu["n_mc"] != cpu["n_mc"] or tpu["T"] != cpu["T"] \
-            or tpu["seed"] != cpu["seed"]:
-        return False, (f"config mismatch: tpu n_mc={tpu['n_mc']} T={tpu['T']}"
-                       f" seed={tpu['seed']} vs truth n_mc={cpu['n_mc']} "
+    if run["n_mc"] != cpu["n_mc"] or run["T"] != cpu["T"] \
+            or run["seed"] != cpu["seed"]:
+        return False, (f"config mismatch: run n_mc={run['n_mc']} T={run['T']}"
+                       f" seed={run['seed']} vs truth n_mc={cpu['n_mc']} "
                        f"T={cpu['T']} seed={cpu['seed']}")
     gated = ("rms_tube", "rms_tube_median", "rms_track_median")
     msgs, ok = [], True
-    for rt, rc in zip(tpu["rows"], cpu["rows"]):
+    for rt, rc in zip(run["rows"], cpu["rows"]):
         assert rt["p"] == rc["p"]
         for k in ("rms_tube", "rms_tube_median", "rms_track",
                   "rms_track_median"):
@@ -127,13 +122,13 @@ def compare_linear(tpu_json: str, truth_json: str, tol: float = 0.02):
                     ok = False
             else:
                 flag = "info" if rel > tol else "ok  "
-            msgs.append(f"  p={rt['p']:.1f} {k}: tpu {a:.5f} vs f64 "
+            msgs.append(f"  p={rt['p']:.1f} {k}: run {a:.5f} vs f64 "
                         f"{b:.5f}  rel {rel:.4f} [{flag}]")
-        # track-arm FULL-distribution gate (round-5 ask #3): instead of
-        # dropping the knife-edge-sensitive mean, gate the KS distance of
-        # the 20-run RMS distributions — a single divergent paired run
-        # (the dissected p=0.8 saturation event, KNIFE_EDGE_r05.json)
-        # moves KS by exactly 1/n and passes; a systematic shift fails.
+        # track-arm FULL-distribution gate: instead of dropping the
+        # knife-edge-sensitive mean, gate the KS distance of the 20-run RMS
+        # distributions — a single divergent paired run (a p=0.8
+        # saturation event) moves KS by exactly 1/n and passes; a
+        # systematic shift fails.
         if "rms_track_all" in rt and "rms_track_all" in rc:
             import numpy as _np
             av = _np.sort(_np.asarray(rt["rms_track_all"], float))
@@ -152,13 +147,16 @@ def compare_linear(tpu_json: str, truth_json: str, tol: float = 0.02):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--round", type=int, required=True)
+    ap.add_argument("--tag", required=True,
+                    help="names the artifact directory results/gate_<tag>")
     ap.add_argument("--skip", nargs="*", default=[], choices=STAGES,
-                    help="stages to skip (iteration only — a round "
-                         "artifact set needs all of them)")
+                    help="stages to skip (iteration only — an artifact set "
+                         "needs all of them)")
     ap.add_argument("--n-mc", type=int, default=20)
     args = ap.parse_args()
-    rr = f"r{args.round:02d}"
+    out_dir = os.path.join(_ROOT, "results", f"gate_{args.tag}")
+    os.makedirs(out_dir, exist_ok=True)
+    art = lambda name: os.path.join(out_dir, name)
     py = sys.executable
     t_head = head_commit_time()
     failures = []
@@ -182,82 +180,51 @@ def main():
             failures.append("tests")
 
     if stage("parity"):
-        rc, _ = run([py, "tools/tpu_checks.py", "--round",
-                     str(args.round)])
+        rc, _ = run([py, "tools/parity_checks.py", "--out",
+                     art("PARITY.json")])
         if rc != 0:
             failures.append("parity")
-    expected.append((f"PARITY_TPU_{rr}.json", "hardware parity gate"))
+    expected.append(("PARITY.json", "parity gate"))
+
+    def app(stage_name, module, stem, extra=()):
+        rc, _ = run([py, "-m", module, *extra, "--n-mc", str(args.n_mc),
+                     "--no-figures", "--save-json", art(f"{stem}.json")],
+                    log_path=art(f"{stem}.log"))
+        if rc != 0:
+            failures.append(stage_name)
 
     if stage("linear"):
-        rc, _ = run([py, "-m", "rtmpc_tpu.apps.results_linear",
-                     "--n-mc", str(args.n_mc),
-                     "--save-json", f"RESULTS_LINEAR_{rr}.json"],
-                    log_path=os.path.join(_ROOT, f"RESULTS_LINEAR_{rr}.log"))
-        if rc != 0:
-            failures.append("linear")
-    expected += [(f"RESULTS_LINEAR_{rr}.log", "linear sweep log"),
-                 (f"RESULTS_LINEAR_{rr}.json", "linear sweep rows")]
+        app("linear", "rtmpc_tpu.apps.results_linear", "RESULTS_LINEAR")
+    expected += [("RESULTS_LINEAR.log", "linear sweep log"),
+                 ("RESULTS_LINEAR.json", "linear sweep rows")]
 
     if stage("linear_ext"):
-        rc, _ = run([py, "-m", "rtmpc_tpu.apps.results_linear_extended",
-                     "--n-mc", str(args.n_mc),
-                     "--save-json", f"RESULTS_LINEAR_EXT_{rr}.json"],
-                    log_path=os.path.join(_ROOT,
-                                          f"RESULTS_LINEAR_EXT_{rr}.log"))
-        if rc != 0:
-            failures.append("linear_ext")
-    expected.append((f"RESULTS_LINEAR_EXT_{rr}.log", "extended linear log"))
+        app("linear_ext", "rtmpc_tpu.apps.results_linear_extended",
+            "RESULTS_LINEAR_EXT")
+    expected.append(("RESULTS_LINEAR_EXT.log", "extended linear log"))
 
     if stage("nonlinear"):
-        rc, _ = run([py, "-m", "rtmpc_tpu.apps.results_nonlinear",
-                     "--n-mc", str(args.n_mc),
-                     "--save-json", f"RESULTS_NONLINEAR_{rr}.json"],
-                    log_path=os.path.join(_ROOT,
-                                          f"RESULTS_NONLINEAR_{rr}.log"))
-        if rc != 0:
-            failures.append("nonlinear")
-        rc, _ = run([py, "-m", "rtmpc_tpu.apps.results_nonlinear",
-                     "--extended", "--n-mc", str(args.n_mc),
-                     "--save-json", f"RESULTS_NONLINEAR_EXT_{rr}.json"],
-                    log_path=os.path.join(
-                        _ROOT, f"RESULTS_NONLINEAR_EXT_{rr}.log"))
-        if rc != 0:
-            failures.append("nonlinear_ext")
-    expected += [(f"RESULTS_NONLINEAR_{rr}.log", "nonlinear log"),
-                 (f"RESULTS_NONLINEAR_EXT_{rr}.log", "nonlinear ext log")]
+        app("nonlinear", "rtmpc_tpu.apps.results_nonlinear",
+            "RESULTS_NONLINEAR")
+        app("nonlinear_ext", "rtmpc_tpu.apps.results_nonlinear",
+            "RESULTS_NONLINEAR_EXT", ("--extended",))
+    expected += [("RESULTS_NONLINEAR.log", "nonlinear log"),
+                 ("RESULTS_NONLINEAR_EXT.log", "nonlinear ext log")]
 
     if stage("compare"):
-        truth = os.path.join(_ROOT, f"RESULTS_LINEAR_CPU_F64_{rr}.json")
-        if not os.path.exists(truth):
-            # fall back to the newest committed truth: the f64-CPU rows
-            # are a function of (code semantics, seeds) only, and
-            # compare_linear still verifies the config fields match
-            import glob
-            cands = sorted(glob.glob(
-                os.path.join(_ROOT, "RESULTS_LINEAR_CPU_F64_r*.json")))
-            if cands:
-                truth = cands[-1]
-                print(f"compare: using fallback truth {truth}")
-        tpu_j = os.path.join(_ROOT, f"RESULTS_LINEAR_{rr}.json")
-        if os.path.exists(truth) and os.path.exists(tpu_j):
-            ok, msg = compare_linear(tpu_j, truth)
-            print(f"\n=== TPU vs f64-truth per-p mean-RMS comparison "
-                  f"(tol 2%):\n{msg}")
+        import glob
+        cands = sorted(glob.glob(
+            os.path.join(_ROOT, "RESULTS_LINEAR_CPU_F64_r*.json")))
+        run_j = art("RESULTS_LINEAR.json")
+        if cands and os.path.exists(run_j):
+            ok, msg = compare_linear(run_j, cands[-1])
+            print(f"\n=== device vs f64-truth ({cands[-1]}) per-p "
+                  f"comparison (tol 2%):\n{msg}")
             if not ok:
                 failures.append("compare")
         else:
-            print(f"compare: SKIPPED — missing {truth} (run "
-                  f"apps.results_linear --platform cpu --save-json "
-                  f"{truth} once to record the truth)")
-
-    if stage("multichip"):
-        env = dict(os.environ)
-        rc, _ = run([py, "tools/multichip_bench.py", "--round",
-                     str(args.round)], env=env)
-        if rc != 0:
-            failures.append("multichip")
-    expected.append((f"MULTICHIP_SCALING_{rr}.json",
-                     "virtual-mesh scaling"))
+            print("compare: SKIPPED — no truth JSON or no linear rows")
+            failures.append("compare")
 
     if stage("bench"):
         rc, out = run([py, "bench.py"])
@@ -266,16 +233,15 @@ def main():
         else:
             last = [ln for ln in out.splitlines() if ln.startswith("{")]
             if last:
-                with open(os.path.join(_ROOT, f"BENCH_GATE_{rr}.json"),
-                          "w") as f:
+                with open(art("BENCH.json"), "w") as f:
                     f.write(last[-1] + "\n")
-    expected.append((f"BENCH_GATE_{rr}.json", "gate bench record"))
+    expected.append(("BENCH.json", "bench record"))
 
     if stage("audit"):
         print("\n######## audit: artifact freshness vs HEAD "
               f"({time.strftime('%F %T', time.localtime(t_head))})")
         for fname, desc in expected:
-            path = os.path.join(_ROOT, fname)
+            path = art(fname)
             if not os.path.exists(path):
                 print(f"  MISSING  {fname} ({desc})")
                 failures.append(f"audit:{fname}")
@@ -294,8 +260,7 @@ def main():
                 failures.append(f"audit:{fname}:stale")
 
     print("\n######## release gate:",
-          "PASS — commit the artifacts" if not failures
-          else f"FAIL — {failures}")
+          "PASS" if not failures else f"FAIL — {failures}")
     return 0 if not failures else 1
 
 

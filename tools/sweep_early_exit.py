@@ -1,7 +1,7 @@
 """Sweep early-exit settings: trajectory parity vs f64 oracle + throughput.
 
 For each (early_tol, dual_factor) setting, runs the flagship T=120 f32
-rollout against the float64 protocol oracle (the tpu_checks parity
+rollout against the float64 protocol oracle (the parity_checks
 methodology) and times the batched B=4096 rollout — the data for choosing
 the shipped early-exit default.
 

@@ -79,8 +79,9 @@ def main():
         terr = float(np.max(np.abs(np.asarray(o1.x) - oracle["x"])))
 
         roll = jax.jit(make_batched_rollout(arrays, cfg, T))
-        # batched parity (the binding gate constraint: MXU arithmetic
-        # differs from the per-element VPU path — tpu_checks section 2b)
+        # batched parity (the binding gate constraint: a batched matmul
+        # lowers differently from the per-element mat-vec — the batched
+        # section of tools/parity_checks.py)
         Bb = 64
         rep = lambda a, dt2: jnp.broadcast_to(
             jnp.asarray(a, dt2), (Bb,) + np.asarray(a).shape)
