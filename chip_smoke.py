@@ -210,7 +210,7 @@ def phase_flagship(jax, state: dict, batch=FLAGSHIP_BATCH, T=FLAGSHIP_T,
     t0 = time.perf_counter()
     setup, arrays, cfg = flagship_config()
     print(f"  setup {time.perf_counter() - t0:.2f} s, LP path: "
-          f"{'native' if _native.native_available() else 'scipy'}; "
+          f"{_native.native_status()}; "
           f"matmul precision {bench.DEFAULT_PRECISION}; n_p "
           f"{arrays.admm.Kinv.shape[0]}, m_p {arrays.admm.As.shape[0]}")
     inputs = flagship_inputs(batch, T)

@@ -19,13 +19,16 @@
 //   2  primal infeasible / numerical failure (h = NaN)
 //
 // Built as a shared library; called from Python via ctypes
-// (rtmpc_tpu/utils/_native.py).  C++17, no external dependencies.
+// (rtmpc_tpu/utils/_native.py).  C++17 and std::thread, no external
+// dependencies (no OpenMP: not every toolchain ships its runtime).
 
+#include <algorithm>
+#include <atomic>
 #include <cmath>
 #include <cstring>
-#include <vector>
 #include <limits>
-#include <algorithm>
+#include <thread>
+#include <vector>
 
 namespace {
 
@@ -286,8 +289,7 @@ int rtmpc_support_batch(const double* A, const double* b, int m, int n,
     for (int j = 0; j < n; ++j)
       E[static_cast<size_t>(j) * m + i] = A[static_cast<size_t>(i) * n + j];
 
-#pragma omp parallel for schedule(dynamic, 8)
-  for (int t = 0; t < k; ++t) {
+  auto solve_one = [&](int t) {
     DenseSimplex sx(n, m);
     double obj = 0.0;
     int rc = sx.solve(E.data(), C + static_cast<size_t>(t) * n, b, &obj);
@@ -301,7 +303,22 @@ int rtmpc_support_batch(const double* A, const double* b, int m, int n,
       h[t] = std::numeric_limits<double>::quiet_NaN();
       status[t] = 2;
     }
-  }
+  };
+
+  // directions are handed out in chunks of 8 to one thread per core
+  constexpr int kChunk = 8;
+  std::atomic<int> next{0};
+  auto worker = [&]() {
+    for (int s; (s = next.fetch_add(kChunk)) < k;)
+      for (int t = s; t < std::min(s + kChunk, k); ++t) solve_one(t);
+  };
+  const int n_threads = std::max(1, std::min(
+      static_cast<int>(std::thread::hardware_concurrency()),
+      (k + kChunk - 1) / kChunk));
+  std::vector<std::thread> pool;
+  for (int i = 1; i < n_threads; ++i) pool.emplace_back(worker);
+  worker();
+  for (auto& th : pool) th.join();
   return 0;
 }
 

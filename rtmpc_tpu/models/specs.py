@@ -101,8 +101,6 @@ class MPCSetup:
     def to_device(self, dtype=jnp.float32, pad_to: int = 8,
                   iters: int = 100, iters2: int = 0,
                   rho2_scale: float = 0.1,
-                  phase1_precision: Optional[str] = None,
-                  phase2_precision: Optional[str] = None,
                   rho="auto", polish: bool = False,
                   solver: str = "admm", ip_iters: int = 25,
                   ip_hybrid_iters: int = 12,
@@ -228,8 +226,6 @@ class MPCSetup:
             early_tol=early_tol,
             early_dual_factor=early_dual_factor,
             check_every=check_every,
-            phase1_precision=phase1_precision,
-            phase2_precision=phase2_precision,
             condensed=condensed,
             n_red=tmpl.n if condensed else 0,
             n_red_pr=(tmpl_pr.n if condensed and tmpl_pr is not None
@@ -296,13 +292,6 @@ class ControllerConfig:
     # Two-phase rho schedule: phase-2 iteration count (0 = disabled);
     # phase 2 runs on arrays.admm2 (rho scaled by to_device's rho2_scale).
     iters2: int = 0
-    # matmul-precision overrides per schedule phase (None = the solve-path
-    # precision).  Phase-1 "default" (single-pass reduced precision)
-    # DIVERGES under vmap (see the batched section of
-    # tools/parity_checks.py); phase-2 "highest" (exact f32) tightens the
-    # batched parity for extra phase-2 cost.
-    phase1_precision: Optional[str] = None
-    phase2_precision: Optional[str] = None
     # Condensed (state-eliminated) solving: solvers run in the reduced
     # space (n_red unpadded reduced vars); _solve maps back to the full
     # layout via arrays.S_rec so all packet/extraction offsets hold.

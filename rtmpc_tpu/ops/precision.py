@@ -13,7 +13,7 @@ product).
 
 The solve-path precision NAME (``set_matmul_precision`` /
 ``RTMPC_MATMUL_PRECISION``) selects the arithmetic of the fused ADMM
-kernel (``ops/qp_pallas.py``):
+kernel (``ops/qp_pallas.py``) and nothing else:
 
 * ``"highest"`` (the default): IEEE float32 products.
 * ``"high"``: the 3-pass bf16 product (hi*hi + hi*lo + lo*hi of the
@@ -23,14 +23,14 @@ kernel (``ops/qp_pallas.py``):
 
 XLA-lowered products run at ``HIGHEST`` under both names.  The 3-pass
 algorithm as XLA offers it (``DotAlgorithmPreset.BF16_BF16_F32_X3``) was
-measured on an H100: correct on matrix-matrix products (5e-6 on the
-product above) but not on matrix-vector ones — the unbatched per-element
-flagship rollout diverged to 1e28 with it, as single-pass bf16 does — and
-only 7% faster than ``HIGHEST`` in the batched engine (21.6k vs 20.2k
-rollouts/s).  A 3-pass split spelled out in jnp was both slower (16.5k)
-and wrong (trajectories 0.19 off the oracle).  Single-pass ``"default"``
-is rejected as a name; per-phase overrides may still ask for it
-(``resolve_precision``).
+measured on an H100 (``tools/precision_probe.py`` has the product
+errors): correct on matrix-matrix products (5e-6 on the product above)
+but not in the rollout — the unbatched per-element flagship rollout
+diverged to 1e28 with it, as single-pass bf16 does — and only 7% faster
+than ``HIGHEST`` in the batched engine (21.6k vs 20.2k rollouts/s).  A
+3-pass split spelled out in jnp was both slower (16.5k) and wrong
+(trajectories 0.19 off the oracle).  Single-pass ``"default"`` is
+rejected as a name.
 """
 
 import contextlib
@@ -39,8 +39,8 @@ import os
 import jax
 import jax.numpy as jnp
 
-__all__ = ["HIGHEST", "mm", "resolve_precision", "set_matmul_precision",
-           "get_matmul_precision", "matmul_precision"]
+__all__ = ["HIGHEST", "mm", "set_matmul_precision", "get_matmul_precision",
+           "matmul_precision"]
 
 HIGHEST = jax.lax.Precision.HIGHEST
 
@@ -55,18 +55,6 @@ def _resolve(name: str) -> str:
             f"{sorted(_VALID)} ('default'/single-pass bf16 is rejected — "
             "it diverges on the solve path, see module docstring)")
     return key
-
-
-def resolve_precision(name):
-    """Per-call precision override for an XLA product: ``jax.lax``
-    objects pass through, "default" is single-pass, "high"/"highest" are
-    ``HIGHEST`` (see the module docstring)."""
-    if not isinstance(name, str):
-        return name
-    if name.lower() == "default":
-        return jax.lax.Precision.DEFAULT
-    _resolve(name)
-    return HIGHEST
 
 
 _PRECISION = _resolve(os.environ.get("RTMPC_MATMUL_PRECISION", "highest"))

@@ -33,7 +33,6 @@ asserted on trajectories, not raw QP iterates.
 
 from __future__ import annotations
 
-from functools import partial
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -41,7 +40,7 @@ import jax
 import jax.numpy as jnp
 
 from .assembly import QPTemplate
-from .precision import mm, resolve_precision
+from .precision import mm
 
 __all__ = ["ADMMSpec", "ADMMState", "ADMMSolution", "prepare_admm",
            "init_admm_state", "admm_solve"]
@@ -311,25 +310,16 @@ def init_admm_state(spec: ADMMSpec) -> ADMMState:
                      z=jnp.zeros(m_p, dt))
 
 
-def _admm_body(spec: ADMMSpec, q, l, u, precision=None):
+def _admm_body(spec: ADMMSpec, q, l, u):
     """One OSQP-ADMM iteration as a closure over the instance vectors
-    (shared by the solve loop and the certificate delta probe).
-
-    ``precision``: optional per-phase matmul precision override
-    (``jax.lax.Precision`` or the strings "default"/"high"/"highest");
-    ``None`` uses the module-wide solve-path precision (``precision.mm``).
-    """
+    (shared by the solve loop and the certificate delta probe)."""
     sigma, alpha = spec.sigma, spec.alpha
-    if precision is None:
-        mmp = mm
-    else:
-        mmp = partial(jnp.matmul, precision=resolve_precision(precision))
 
     def body(s: ADMMState) -> ADMMState:
         x, y, z = s
-        rhs = sigma * x - q + mmp(spec.As.T, spec.rho * z - y)
-        xt = mmp(spec.Kinv, rhs)
-        zt = mmp(spec.As, xt)
+        rhs = sigma * x - q + mm(spec.As.T, spec.rho * z - y)
+        xt = mm(spec.Kinv, rhs)
+        zt = mm(spec.As, xt)
         x_new = alpha * xt + (1.0 - alpha) * x
         z_mix = alpha * zt + (1.0 - alpha) * z
         z_new = jnp.clip(z_mix + y * spec.rho_inv, l, u)
@@ -347,8 +337,7 @@ def admm_solve(spec: ADMMSpec, theta: jax.Array,
                active_tol: float = 1e-6,
                early_tol: Optional[float] = None,
                early_dual_factor: float = 25.0,
-               check_every: int = 25,
-               precision=None) -> ADMMSolution:
+               check_every: int = 25) -> ADMMSolution:
     """Solve one parameter instance; ``jax.vmap`` over ``theta``/``state``
     for batches.  Fixed iteration count (scan/jit friendly).
 
@@ -382,7 +371,7 @@ def admm_solve(spec: ADMMSpec, theta: jax.Array,
     l = spec.l0 + mm(spec.Ml, theta)
     u = spec.u0 + mm(spec.Mu, theta)
 
-    body = _admm_body(spec, q, l, u, precision=precision)
+    body = _admm_body(spec, q, l, u)
     if early_tol is None:
         state = jax.lax.fori_loop(0, iters, lambda _, s: body(s), state)
     else:

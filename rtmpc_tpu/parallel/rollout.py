@@ -173,15 +173,13 @@ def _solve(arrays, cfg, theta_qp, warm_state, pr=False):
     if cfg.iters2 > 0:
         # two-phase rho schedule: phase 1 (tuned rho) drives the
         # primal/active set, phase 2 (rho * rho2_scale) converges the dual
-        sol1 = admm_solve(spec, theta_qp, warm_state, iters=cfg.iters,
-                          precision=cfg.phase1_precision)
+        sol1 = admm_solve(spec, theta_qp, warm_state, iters=cfg.iters)
         spec2 = arrays.admm2_pr if pr else arrays.admm2
         sol = admm_solve(spec2, theta_qp, sol1.state,
                          iters=cfg.iters2, polish=cfg.polish,
                          early_tol=cfg.early_tol,
                          early_dual_factor=cfg.early_dual_factor,
-                         check_every=cfg.check_every,
-                         precision=cfg.phase2_precision)
+                         check_every=cfg.check_every)
         return _recover(arrays, cfg, sol, pr)
     sol = admm_solve(spec, theta_qp, warm_state,
                      iters=cfg.iters, polish=cfg.polish,

@@ -18,8 +18,8 @@ iterates on chip for the whole solve: device memory then carries only the
 per-solve state, parameters and the problem matrices.
 
 The roofline share is the least time the card could take (the larger of
-FLOPs over the peak at the precision used and bytes over the memory
-bandwidth) divided by the measured time.  Peaks come from one table keyed
+FLOPs over the peak of the arithmetic the products run in and bytes over
+the memory bandwidth) divided by the measured time.  Peaks come from one table keyed
 by ``device_kind``; a device missing from it is an error.
 """
 
@@ -27,8 +27,8 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-__all__ = ["DevicePeaks", "PEAKS", "device_peaks", "admm_engine_model",
-           "roofline_summary"]
+__all__ = ["DevicePeaks", "PEAKS", "device_peaks", "solve_arithmetic",
+           "admm_engine_model", "roofline_summary"]
 
 
 class DevicePeaks(NamedTuple):
@@ -63,14 +63,28 @@ def device_peaks(device) -> DevicePeaks:
     return PEAKS[kind]
 
 
-def _matmul_peak_tflops(peaks: DevicePeaks, precision: str) -> float:
-    """Peak rate of the solve path's products: "highest" runs IEEE f32
-    outside the tensor cores; "high" runs three bf16 tensor-core passes."""
-    if precision == "highest":
+def solve_arithmetic(solver: str, precision: str,
+                     dtype: str = "float32") -> str:
+    """The arithmetic the batched engine's products run in.
+
+    "bf16x3" (three bf16 tensor-core passes) only for the fused kernel at
+    "high" (``ops/qp_pallas.py``); "f32" (IEEE float32, outside the tensor
+    cores) for the kernel at "highest" and for every XLA-lowered solver,
+    whose products run at ``HIGHEST`` under either precision name
+    (``ops/precision.py``)."""
+    if str(dtype) != "float32":
+        raise ValueError(f"no peak for a {dtype} engine")
+    if precision not in ("high", "highest"):
+        raise ValueError(f"unknown matmul precision {precision!r}")
+    return "bf16x3" if solver == "pallas" and precision == "high" else "f32"
+
+
+def _matmul_peak_tflops(peaks: DevicePeaks, arithmetic: str) -> float:
+    if arithmetic == "f32":
         return peaks.f32_tflops
-    if precision == "high":
+    if arithmetic == "bf16x3":
         return peaks.bf16_tflops / 3.0
-    raise ValueError(f"unknown matmul precision {precision!r}")
+    raise ValueError(f"unknown arithmetic {arithmetic!r}")
 
 
 def admm_engine_model(n: int, m: int, ntheta: int, iters_total: int,
@@ -96,13 +110,14 @@ def admm_engine_model(n: int, m: int, ntheta: int, iters_total: int,
 
 
 def roofline_summary(model: dict, wall_s: float, peaks: DevicePeaks,
-                     precision: str) -> dict:
+                     arithmetic: str) -> dict:
     """Achieved rate and roofline share of a measured rollout.
 
     ``roofline_share`` = max(t_compute, t_memory) / ``wall_s`` with
-    t_compute = FLOPs / peak at ``precision`` and t_memory = least bytes /
-    bandwidth; ``roofline_bound`` names the larger term."""
-    peak = _matmul_peak_tflops(peaks, precision)
+    t_compute = FLOPs / peak of ``arithmetic`` (``solve_arithmetic``) and
+    t_memory = least bytes / bandwidth; ``roofline_bound`` names the
+    larger term."""
+    peak = _matmul_peak_tflops(peaks, arithmetic)
     t_compute = model["flops"] / (peak * 1e12)
     t_memory = model["bytes_min"] / (peaks.hbm_gbps * 1e9)
     bound = "compute" if t_compute >= t_memory else "memory"
@@ -111,6 +126,6 @@ def roofline_summary(model: dict, wall_s: float, peaks: DevicePeaks,
         "roofline_share": max(t_compute, t_memory) / wall_s,
         "roofline_bound": bound,
         "peaks": {"device": peaks.name, "matmul_tflops": peak,
-                  "precision": precision, "hbm_gbps": peaks.hbm_gbps,
+                  "arithmetic": arithmetic, "hbm_gbps": peaks.hbm_gbps,
                   "source": peaks.source},
     }

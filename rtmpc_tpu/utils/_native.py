@@ -1,10 +1,11 @@
 """ctypes binding for the native batched-LP kernel (``native/rtmpc_lp.cpp``).
 
 The shared library is built on first use with the repo Makefile (g++,
-single translation unit, OpenMP) and cached next to the source; set
+single translation unit, std::thread) and cached next to the source; set
 ``RTMPC_NO_NATIVE=1`` to force the pure-scipy fallback.  All entry points
 degrade gracefully: if the toolchain or the build is unavailable,
-``native_available()`` returns False and callers keep using scipy/HiGHS.
+``native_available()`` returns False, callers keep using scipy/HiGHS, and
+``native_status()`` (and a warning) says why.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import ctypes
 import os
 import subprocess
 import threading
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -26,15 +28,23 @@ _SO = os.path.join(_NATIVE_DIR, "librtmpc_lp.so")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+_why = ""            # why the library is not in use, once _load has run
 
 
 def _build() -> bool:
+    global _why
     try:
         subprocess.run(["make", "-C", _NATIVE_DIR],
-                       check=True, capture_output=True, timeout=120)
+                       check=True, capture_output=True, text=True,
+                       timeout=120)
         return True
-    except Exception:
-        return False
+    except OSError as e:
+        _why = f"cannot run make: {e}"
+    except subprocess.CalledProcessError as e:
+        _why = f"make failed: {(e.stderr or e.stdout).strip()[-400:]}"
+    except subprocess.TimeoutExpired:
+        _why = "make timed out after 120 s"
+    return False
 
 
 def _src_hash() -> str:
@@ -58,22 +68,28 @@ def _open_if_current(want_hash: str) -> Optional[ctypes.CDLL]:
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _tried
+    global _lib, _tried, _why
     with _lock:
         if _tried:
             return _lib
         _tried = True
         if os.environ.get("RTMPC_NO_NATIVE"):
+            _why = "RTMPC_NO_NATIVE is set"
             return None
         if not os.path.exists(_SRC):
+            _why = f"{_SRC} is missing"
             return None
         want = _src_hash()
         lib = _open_if_current(want)
         if lib is None:
-            if not _build():
-                return None
-            lib = _open_if_current(want)
+            if _build():
+                lib = _open_if_current(want)
+                if lib is None:
+                    _why = (f"{_SO} did not load or does not embed the "
+                            "source's hash")
             if lib is None:
+                warnings.warn(f"native LP kernel unavailable, using scipy: "
+                              f"{_why}", RuntimeWarning, stacklevel=3)
                 return None
         lib.rtmpc_support_batch.restype = ctypes.c_int
         lib.rtmpc_support_batch.argtypes = [
@@ -91,6 +107,11 @@ def _load() -> Optional[ctypes.CDLL]:
 
 def native_available() -> bool:
     return _load() is not None
+
+
+def native_status() -> str:
+    """"native", or "scipy (<why the library is not in use>)"."""
+    return "native" if _load() is not None else f"scipy ({_why})"
 
 
 def support_batch_native(A: np.ndarray, b: np.ndarray,

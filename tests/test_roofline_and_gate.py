@@ -13,7 +13,7 @@ sys.path.insert(0, os.path.join(_ROOT, "tools"))
 import pytest
 
 from rtmpc_tpu.parallel.roofline import (admm_engine_model, device_peaks,
-                                         roofline_summary)
+                                         roofline_summary, solve_arithmetic)
 
 
 class _Dev:
@@ -49,24 +49,46 @@ def test_engine_model_consistency():
     assert m["bytes_min"] > 120 * 2 * 4 * 16384 * (40 + 2 * 112)
 
 
+@pytest.mark.parametrize("solver,precision,want", [
+    ("admm", "high", "f32"),        # XLA runs HIGHEST under either name
+    ("admm", "highest", "f32"),
+    ("ip_hybrid", "high", "f32"),
+    ("pallas", "high", "bf16x3"),   # only the kernel splits into bf16
+    ("pallas", "highest", "f32"),
+])
+def test_solve_arithmetic(solver, precision, want):
+    assert solve_arithmetic(solver, precision) == want
+
+
+def test_solve_arithmetic_rejects():
+    with pytest.raises(ValueError):
+        solve_arithmetic("admm", "default")
+    with pytest.raises(ValueError):
+        solve_arithmetic("admm", "high", "float64")
+
+
 def test_roofline_bound_naming():
     peaks = device_peaks("NVIDIA H100 80GB HBM3")
     m = admm_engine_model(40, 112, 4, 120, 120, 16384)
-    s = roofline_summary(m, wall_s=0.75, peaks=peaks, precision="high")
-    # ~2.5e12 FLOPs at 989/3 TFLOP/s outweigh ~1 GB at 3.35 TB/s
+    # the shipped default: the XLA solver at "high" runs IEEE f32
+    s = roofline_summary(m, wall_s=0.75, peaks=peaks,
+                         arithmetic=solve_arithmetic("admm", "high"))
+    # ~2.5e12 FLOPs at 67 TFLOP/s outweigh ~1 GB at 3.35 TB/s
     assert s["roofline_bound"] == "compute"
-    t_compute = m["flops"] / (peaks.bf16_tflops / 3 * 1e12)
+    t_compute = m["flops"] / (peaks.f32_tflops * 1e12)
     assert s["roofline_share"] == pytest.approx(t_compute / 0.75)
-    assert s["peaks"]["matmul_tflops"] == pytest.approx(989.0 / 3)
-    # IEEE f32 runs outside the tensor cores: the lower peak
-    s32 = roofline_summary(m, wall_s=0.75, peaks=peaks, precision="highest")
-    assert s32["roofline_share"] > s["roofline_share"]
+    assert s["peaks"]["matmul_tflops"] == pytest.approx(67.0)
+    # the kernel's 3-pass bf16 runs on the tensor cores: the higher peak
+    s3 = roofline_summary(m, wall_s=0.75, peaks=peaks,
+                          arithmetic=solve_arithmetic("pallas", "high"))
+    assert s3["peaks"]["matmul_tflops"] == pytest.approx(989.0 / 3)
+    assert s3["roofline_share"] < s["roofline_share"]
     # one iteration per step at batch 1: memory-bound
     m1 = admm_engine_model(40, 112, 4, 1, 120, 1)
-    assert roofline_summary(m1, 1.0, peaks, "high")["roofline_bound"] \
+    assert roofline_summary(m1, 1.0, peaks, "bf16x3")["roofline_bound"] \
         == "memory"
     with pytest.raises(ValueError):
-        roofline_summary(m, 0.75, peaks, "default")
+        roofline_summary(m, 0.75, peaks, "tf32")
 
 
 def test_release_gate_compare_rows(tmp_path):
